@@ -1,0 +1,344 @@
+// K2: fused per-cell exact-GP posterior predict at one test point.
+//
+// Replaces optimalinterpolation_tpu/ops/pallas_gp.py::gp_predict (body
+// _predict_kernel). Per cell, in one CTA:
+//   1. the lower block triangle of A = K o mm^T + diag((sf2+sn2+jitter*sf2) m
+//      + (1 - m)), built from x scaled by 1/ell before differencing;
+//   2. a right-looking blocked Cholesky A = L L^T: the 128x128 diagonal block
+//      in shared memory through factor_invert.cuh (giving W_kk = L_kk^-1),
+//      the panel L_ik = A_ik W_kk^T and the trailing update
+//      A_ij -= L_ik L_jk^T as SIMT tiles out of shared memory;
+//   3. one forward sweep for z = L^-1 (y - mean) m and v = L^-1 k*, with k*
+//      built from xstar;
+//   4. mean = mean + z.v, std = sqrt(max(sf2 - |v|^2, 0)),
+//      lZ = -(|z|^2/2 + logdet + n_valid/2 log 2 pi), prior_std = sqrt(sf2),
+//      ok; NaN in mean, std and lZ where not ok.
+// Inputs are f32: log_hypers (B, 5), x (B, N, 3), y (B, N), xstar (B, 3),
+// mask (B, N), mean (B,); N a multiple of 128 in [128, 1024]. Output
+// (B, 5) = [mean, std, lZ, prior_std, ok].
+//
+// Bound on this card: an (N, N) f32 cell is 1 MB at N = 512 and 4 MB at
+// N = 1024, far above the 227 KB of shared memory a CTA may hold, so the
+// TPU's whole-cell-in-VMEM design does not carry over. A and the W_kk blocks
+// live in caller-allocated device-memory scratch ((B, N, N) and (B, N, 128));
+// each 128x128 tile product stages its two operands in shared memory and
+// keeps a 4x8 register tile per thread, so the kernel is bound by
+// shared-memory bandwidth of the tile products and, at N = 512, by the
+// sequential pivot chain of the diagonal blocks. One CTA per cell, no
+// tensor cores: wgmma, TMA and several CTAs per cell are later work.
+#include <cuda_runtime.h>
+
+#include "factor_invert.cuh"
+
+namespace {
+
+using oi::BLK;
+using oi::LDS;
+
+constexpr int kThreads = 512;  // 32 x 16 threads, a 4x8 output tile each
+constexpr float kLog2Pi = 1.8378770664093453f;
+
+// k / sf2 as a function of the scaled squared distance d2
+// (pallas_gp.py::_shape_fn). kind: 0 Matern-1/2, 1 Matern-3/2,
+// 2 Matern-5/2, 3 squared exponential.
+__device__ inline float shape_fn(int kind, float d2) {
+  switch (kind) {
+    case 0:
+      return expf(-sqrtf(d2));
+    case 1: {
+      const float r = sqrtf(3.f * d2);
+      return (1.f + r) * expf(-r);
+    }
+    case 2: {
+      const float r = sqrtf(5.f * d2);
+      return (1.f + r + r * r / 3.f) * expf(-r);
+    }
+    default:
+      return expf(-0.5f * d2);
+  }
+}
+
+__device__ inline void load_block(float* s, const float* g, int r0, int c0,
+                                  int n) {
+  for (int e = threadIdx.x; e < BLK * BLK; e += blockDim.x) {
+    const int r = e / BLK;
+    const int c = e % BLK;
+    s[r * LDS + c] = g[static_cast<size_t>(r0 + r) * n + c0 + c];
+  }
+}
+
+// acc = a b^T for two 128x128 shared-memory tiles (row stride LDS). Thread
+// (ty, tx) owns rows ty + 32 ii and columns tx + 16 jj: a warp reads two rows
+// of a and sixteen of b per step, all on distinct banks.
+__device__ inline void tile_abt(const float* a, const float* b,
+                                float acc[4][8]) {
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) acc[ii][jj] = 0.f;
+#pragma unroll 4
+  for (int t = 0; t < BLK; ++t) {
+    float av[4];
+    float bv[8];
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) av[ii] = a[(ty + 32 * ii) * LDS + t];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) bv[jj] = b[(tx + 16 * jj) * LDS + t];
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        acc[ii][jj] = fmaf(av[ii], bv[jj], acc[ii][jj]);
+  }
+}
+
+__device__ inline float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    k2_predict_kernel(const float* __restrict__ log_hypers,
+                      const float* __restrict__ x, const float* __restrict__ y,
+                      const float* __restrict__ xstar,
+                      const float* __restrict__ mask,
+                      const float* __restrict__ mean, float* __restrict__ a_scr,
+                      float* __restrict__ w_scr, float* __restrict__ out,
+                      int n, int kind, float jitter) {
+  extern __shared__ float smem[];
+  float* sd = smem;            // BLK x LDS: diagonal block, then tile operand
+  float* sw = sd + BLK * LDS;  // BLK x LDS: W_kk, then tile operand
+  float* q = sw + BLK * LDS;   // 4 n: x/ell_x, y/ell_y, t/ell_t, mask
+  float* zv = q + 4 * n;       // 2 n: right-hand sides, then z and v
+  float* red = zv + 2 * n;     // 4 per warp: block reduction
+
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int nwarps = nt / 32;
+  const int cell = blockIdx.x;
+  const int nb = n / BLK;
+  float* A = a_scr + static_cast<size_t>(cell) * n * n;
+  float* Wg = w_scr + static_cast<size_t>(cell) * n * BLK;
+  const float* lh = log_hypers + cell * 5;
+  const float inv_ell0 = expf(-lh[0]);
+  const float inv_ell1 = expf(-lh[1]);
+  const float inv_ell2 = expf(-lh[2]);
+  const float sf2 = expf(lh[3]);
+  const float sn2 = expf(lh[4]);
+  const float mu = mean[cell];
+
+  // ---- 0. scaled coordinates and mask ------------------------------------
+  for (int i = tid; i < n; i += nt) {
+    const float* xi = x + (static_cast<size_t>(cell) * n + i) * 3;
+    q[i] = xi[0] * inv_ell0;
+    q[n + i] = xi[1] * inv_ell1;
+    q[2 * n + i] = xi[2] * inv_ell2;
+    q[3 * n + i] = mask[static_cast<size_t>(cell) * n + i];
+  }
+  __syncthreads();
+
+  // ---- 1. lower block triangle of A ---------------------------------------
+  const float dval = sf2 + sn2 + jitter * sf2;
+  for (int ib = 0; ib < nb; ++ib) {
+    for (int jb = 0; jb <= ib; ++jb) {
+      for (int e = tid; e < BLK * BLK; e += nt) {
+        const int i = ib * BLK + e / BLK;
+        const int j = jb * BLK + e % BLK;
+        const float mi = q[3 * n + i];
+        float v;
+        if (i == j) {
+          v = dval * mi + (1.f - mi);
+        } else {
+          const float d0 = q[i] - q[j];
+          const float d1 = q[n + i] - q[n + j];
+          const float d2 = q[2 * n + i] - q[2 * n + j];
+          v = sf2 * shape_fn(kind, d0 * d0 + d1 * d1 + d2 * d2) * mi *
+              q[3 * n + j];
+        }
+        A[static_cast<size_t>(i) * n + j] = v;
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- 2. right-looking blocked Cholesky ----------------------------------
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  float logdet = 0.f;
+  bool ok = true;
+  float acc[4][8];
+  for (int kb = 0; kb < nb; ++kb) {
+    const int k0 = kb * BLK;
+    load_block(sd, A, k0, k0, n);
+    for (int e = tid; e < BLK * BLK; e += nt)
+      sw[(e / BLK) * LDS + e % BLK] = (e / BLK == e % BLK) ? 1.f : 0.f;
+    __syncthreads();
+    float ld;
+    bool okk;
+    oi::factor_invert_128(sd, sw, ld, okk);
+    logdet += ld;
+    ok = ok && okk;
+    for (int e = tid; e < BLK * BLK; e += nt) {
+      const int r = e / BLK;
+      const int c = e % BLK;
+      A[static_cast<size_t>(k0 + r) * n + k0 + c] =
+          (c <= r) ? sd[r * LDS + c] : 0.f;
+      Wg[static_cast<size_t>(k0 + r) * BLK + c] = sw[r * LDS + c];
+    }
+    // panel: L_ik = A_ik W_kk^T
+    for (int ib = kb + 1; ib < nb; ++ib) {
+      __syncthreads();
+      load_block(sd, A, ib * BLK, k0, n);
+      __syncthreads();
+      tile_abt(sd, sw, acc);
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+          A[static_cast<size_t>(ib * BLK + ty + 32 * ii) * n + k0 + tx +
+            16 * jj] = acc[ii][jj];
+    }
+    __syncthreads();
+    // trailing update of the lower block triangle: A_ij -= L_ik L_jk^T
+    for (int ib = kb + 1; ib < nb; ++ib) {
+      load_block(sd, A, ib * BLK, k0, n);
+      for (int jb = kb + 1; jb <= ib; ++jb) {
+        load_block(sw, A, jb * BLK, k0, n);
+        __syncthreads();
+        tile_abt(sd, sw, acc);
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+            A[static_cast<size_t>(ib * BLK + ty + 32 * ii) * n + jb * BLK +
+              tx + 16 * jj] -= acc[ii][jj];
+        __syncthreads();
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- 3. dual forward solve: z = L^-1 ym, v = L^-1 k* --------------------
+  const float xs0 = xstar[cell * 3] * inv_ell0;
+  const float xs1 = xstar[cell * 3 + 1] * inv_ell1;
+  const float xs2 = xstar[cell * 3 + 2] * inv_ell2;
+  for (int i = tid; i < n; i += nt) {
+    const float mi = q[3 * n + i];
+    const float d0 = q[i] - xs0;
+    const float d1 = q[n + i] - xs1;
+    const float d2 = q[2 * n + i] - xs2;
+    zv[i] = (y[static_cast<size_t>(cell) * n + i] - mu) * mi;
+    zv[n + i] = sf2 * shape_fn(kind, d0 * d0 + d1 * d1 + d2 * d2) * mi;
+  }
+  __syncthreads();
+  float* rz = sd;        // 128: block right-hand side for z
+  float* rv = sd + BLK;  // 128: block right-hand side for v
+  for (int ib = 0; ib < nb; ++ib) {
+    // rhs_i - sum_{t < ib*BLK} L_it [z, v]_t, one warp per row
+    for (int r = warp; r < BLK; r += nwarps) {
+      const int i = ib * BLK + r;
+      const float* lrow = A + static_cast<size_t>(i) * n;
+      float sz = 0.f;
+      float sv = 0.f;
+      for (int t = lane; t < ib * BLK; t += 32) {
+        const float lv = lrow[t];
+        sz = fmaf(lv, zv[t], sz);
+        sv = fmaf(lv, zv[n + t], sv);
+      }
+      sz = warp_sum(sz);
+      sv = warp_sum(sv);
+      if (lane == 0) {
+        rz[r] = zv[i] - sz;
+        rv[r] = zv[n + i] - sv;
+      }
+    }
+    __syncthreads();
+    // [z, v]_ib = W_ib [rz, rv]
+    for (int r = warp; r < BLK; r += nwarps) {
+      const int i = ib * BLK + r;
+      const float* wrow = Wg + static_cast<size_t>(i) * BLK;
+      float sz = 0.f;
+      float sv = 0.f;
+      for (int t = lane; t <= r; t += 32) {
+        const float wv = wrow[t];
+        sz = fmaf(wv, rz[t], sz);
+        sv = fmaf(wv, rv[t], sv);
+      }
+      sz = warp_sum(sz);
+      sv = warp_sum(sv);
+      if (lane == 0) {
+        zv[i] = sz;
+        zv[n + i] = sv;
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- 4. reductions and outputs ------------------------------------------
+  float s_zz = 0.f, s_zv = 0.f, s_vv = 0.f, s_m = 0.f;
+  for (int i = tid; i < n; i += nt) {
+    const float z = zv[i];
+    const float v = zv[n + i];
+    s_zz = fmaf(z, z, s_zz);
+    s_zv = fmaf(z, v, s_zv);
+    s_vv = fmaf(v, v, s_vv);
+    s_m += q[3 * n + i];
+  }
+  s_zz = warp_sum(s_zz);
+  s_zv = warp_sum(s_zv);
+  s_vv = warp_sum(s_vv);
+  s_m = warp_sum(s_m);
+  if (lane == 0) {
+    red[4 * warp] = s_zz;
+    red[4 * warp + 1] = s_zv;
+    red[4 * warp + 2] = s_vv;
+    red[4 * warp + 3] = s_m;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float quad = 0.f, zdotv = 0.f, vv = 0.f, n_valid = 0.f;
+    for (int k = 0; k < nwarps; ++k) {
+      quad += red[4 * k];
+      zdotv += red[4 * k + 1];
+      vv += red[4 * k + 2];
+      n_valid += red[4 * k + 3];
+    }
+    const float nanv = __int_as_float(0x7fc00000);
+    const float var = fmaxf(sf2 - vv, 0.f);
+    const float lz = -(0.5f * quad + logdet + 0.5f * n_valid * kLog2Pi);
+    float* o = out + cell * 5;
+    o[0] = ok ? mu + zdotv : nanv;
+    o[1] = ok ? sqrtf(var) : nanv;
+    o[2] = ok ? lz : nanv;
+    o[3] = sqrtf(sf2);
+    o[4] = ok ? 1.f : 0.f;
+  }
+}
+
+}  // namespace
+
+extern "C" int oi_k2_predict(const float* log_hypers, const float* x,
+                             const float* y, const float* xstar,
+                             const float* mask, const float* mean,
+                             float* a_scr, float* w_scr, float* out, int b,
+                             int n, int kind, float jitter, int device,
+                             cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (b <= 0) return 0;
+  if (n % BLK != 0 || n < BLK || n > 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = static_cast<int>(sizeof(float)) *
+                   (2 * BLK * LDS + 6 * n + 4 * (kThreads / 32));
+  err = cudaFuncSetAttribute(k2_predict_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k2_predict_kernel<<<b, kThreads, smem, stream>>>(
+      log_hypers, x, y, xstar, mask, mean, a_scr, w_scr, out, n, kind, jitter);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,104 @@
+"""K1 and K2 on the card against their plain twins (marker ``cuda``).
+
+These tests need an NVIDIA card and ``nvcc``; without them they skip. They
+import no JAX, so on the card they run without the suite's conftest:
+
+  python -m pytest tests/test_torch_cuda.py --noconftest -q
+
+Tolerances are float32 ones: the kernels run in float32, the twins in
+float64 on the same (float32-rounded) inputs.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from optimalinterpolation_tpu_torch.ops import blocked_gp, fused_gp
+from optimalinterpolation_tpu_torch.ops.kernels import Kernel
+
+pytestmark = pytest.mark.cuda
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _spd_blocks(rng, b):
+    g = rng.standard_normal((b, 128, 128))
+    d = g @ g.transpose(0, 2, 1) / 128 + 0.5 * np.eye(128)
+    d[-1] -= 3.0 * np.eye(128)  # not positive definite
+    return 0.5 * (d + d.transpose(0, 2, 1))
+
+
+def test_k1_matches_twin(card):
+    d = torch.tensor(_spd_blocks(np.random.default_rng(0), 9), dtype=torch.float32, device=card)
+    before = blocked_gp._factor_invert.launches
+    l, w, logdet, ok = blocked_gp._factor_invert(d)
+    assert blocked_gp._factor_invert.launches == before + 1
+    lt, wt, logdet_t, ok_t = blocked_gp._factor_invert_plain(d.double())
+    assert torch.equal(ok, ok_t) and not bool(ok[-1]) and bool(ok[:-1].all())
+    good = ok
+    torch.testing.assert_close(l.double()[good], lt[good], atol=1e-5, rtol=0)
+    torch.testing.assert_close(w.double()[good], wt[good], atol=1e-4, rtol=0)
+    torch.testing.assert_close(logdet.double()[good], logdet_t[good], rtol=1e-5, atol=0)
+    assert bool((l.triu(1) == 0).all())
+
+
+@pytest.mark.parametrize("kind", list(Kernel))
+@pytest.mark.parametrize("n", [128, 384])
+def test_k2_matches_twin(card, kind, n):
+    rng = np.random.default_rng(n)
+    b = 6
+    x = rng.uniform(-3e5, 3e5, (b, n, 3)) * np.asarray([1, 1, 1.2e-5])
+    y = rng.normal(0.1, 0.05, (b, n))
+    mask = (rng.random((b, n)) < 0.85).astype(np.float64)
+    h = np.tile(np.log([1.5e5, 2.0e5, 2.0, 0.03, 0.005]), (b, 1))
+    h[1] += 0.3
+    h[-1] = np.nan
+    xs = rng.uniform(-1e5, 1e5, (b, 3)) * np.asarray([1, 1, 0]) + np.asarray([0.0, 0.0, 4.0])
+    mean = np.full((b,), 0.15)
+    args = [torch.tensor(a, dtype=torch.float32, device=card) for a in (h, x, y, xs, mask, mean)]
+    before = fused_gp.gp_predict.launches
+    r = fused_gp.gp_predict(*args, kind=kind, jitter=1e-6)
+    assert fused_gp.gp_predict.launches == before + 1
+    ref = fused_gp.gp_predict_plain(*[a.double() for a in args], kind=kind, jitter=1e-6)
+    assert torch.equal(r.ok, ref.ok) and not bool(r.ok[-1]) and bool(r.ok[:-1].all())
+    ok = ref.ok
+    torch.testing.assert_close(r.mean.double()[ok], ref.mean[ok], atol=1e-4, rtol=0)
+    torch.testing.assert_close(r.std.double()[ok], ref.std[ok], atol=1e-4, rtol=0)
+    torch.testing.assert_close(r.lZ.double()[ok], ref.lZ[ok], rtol=1e-4, atol=0)
+    torch.testing.assert_close(r.prior_std.double()[ok], ref.prior_std[ok], rtol=1e-6, atol=0)
+    assert torch.isnan(r.mean[-1]) and torch.isnan(r.std[-1]) and torch.isnan(r.lZ[-1])
+
+
+def test_blocked_predict_on_card_uses_k1(card):
+    rng = np.random.default_rng(3)
+    b, n = 2, 2048
+    x = rng.uniform(-3e5, 3e5, (b, n, 3)) * np.asarray([1, 1, 1.2e-5])
+    y = rng.normal(0.1, 0.05, (b, n))
+    mask = (rng.random((b, n)) < 0.85).astype(np.float64)
+    h = np.tile(np.log([1.5e5, 2.0e5, 2.0, 0.03, 0.005]), (b, 1))
+    xs = np.zeros((b, 3))
+    args = [torch.tensor(a, dtype=torch.float32, device=card)
+            for a in (h, x, y, xs, mask, np.full((b,), 0.15))]
+    before = blocked_gp._factor_invert.launches
+    r = blocked_gp.gp_predict_blocked(*args, jitter=1e-6)
+    assert blocked_gp._factor_invert.launches == before + 16  # 4 panels x 4 blocks
+    ref = fused_gp.gp_predict_plain(*[a.double() for a in args], jitter=1e-6)
+    torch.testing.assert_close(r.mean.double(), ref.mean, atol=1e-4, rtol=0)
+    torch.testing.assert_close(r.std.double(), ref.std, atol=1e-4, rtol=0)
+
+
+def test_wrappers_refuse_float64_on_card(card):
+    with pytest.raises(TypeError):
+        blocked_gp._factor_invert(torch.eye(128, dtype=torch.float64, device=card)[None])
+    args = [torch.zeros(s, dtype=torch.float64, device=card)
+            for s in ((1, 5), (1, 128, 3), (1, 128), (1, 3), (1, 128), (1,))]
+    with pytest.raises(TypeError):
+        fused_gp.gp_predict(*args)

@@ -1,0 +1,157 @@
+"""The port's quicklook slice against the JAX package, float64 on the CPU.
+
+``interpolate_daily(precomputed_hypers=...)`` of both packages runs on the
+same hand-sized dataset (tests/reference_flow.make_tiny_dataset) and the
+same hyperparameter fields, some of them NaN; all 15 reference-dict fields
+agree to 1e-9 with identical NaN masks. Also: the port's CLI end to end, and
+that the port never imports JAX.
+"""
+
+import json
+import os
+import pickle
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from optimalinterpolation_tpu.pipeline import daily as JD
+from optimalinterpolation_tpu_torch import cli
+from optimalinterpolation_tpu_torch.pipeline import daily as TD
+
+from .reference_flow import make_tiny_dataset
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _hypers(ds):
+    """Smoothly varying fields with two NaN cells inside the active disk."""
+    g = ds.x.shape[0]
+    wave = 1.0 + 0.2 * np.sin(np.arange(g)[:, None] / 3.0) * np.cos(np.arange(g)[None, :] / 4.0)
+    res_m = ds.grid_res_km * 1e3
+    h = {"ell_x": 2.5 * res_m * wave, "ell_y": 2.5 * res_m / wave, "ell_t": 2.0 * wave,
+         "sf2": 0.004 * wave, "sn2": np.full((g, g), 4e-4)}
+    c = g // 2
+    h["sf2"][c, c] = np.nan
+    h["ell_t"][c + 1, c - 2] = np.nan
+    return h
+
+
+def _prior_field(ds):
+    """A (G, G) prior with NaN cells, which fall back to its finite mean."""
+    field = 0.2 + 0.01 * np.cos(ds.x / 3e5) * np.sin(ds.y / 4e5)
+    field[::5, ::3] = np.nan
+    return field
+
+
+@pytest.mark.parametrize("prior", ["scalar", "field"])
+@pytest.mark.parametrize("buckets", [(512, 1024, 2048, 4096), (128, 256)])
+def test_quicklook_day_matches_jax(buckets, prior):
+    ds = make_tiny_dataset()
+    hyp = _hypers(ds)
+    mean = 0.2 if prior == "scalar" else _prior_field(ds)
+    ref = JD.interpolate_daily(
+        ds, 0, mean, JD.DailyConfig(dtype="float64", jitter=1e-6, buckets=buckets),
+        precomputed_hypers=hyp,
+    ).to_reference_dict()
+    got = TD.interpolate_daily(
+        ds, 0, mean, TD.DailyConfig(dtype="float64", jitter=1e-6, buckets=buckets),
+        precomputed_hypers=hyp, device="cpu",
+    ).to_reference_dict()
+    assert list(got) == list(ref) and len(got) == 15
+    active = np.isfinite(ds.sie[:, :, 4])
+    for key, r in ref.items():
+        g = got[key]
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(r), err_msg=key)
+        if key.endswith("_lZ"):
+            np.testing.assert_allclose(g, r, rtol=1e-9, atol=0, err_msg=key)
+        else:
+            np.testing.assert_allclose(g, r, atol=1e-9, rtol=0, err_msg=key)
+    interp = got[f"{ds.dates[4]}_interp_smth"]
+    assert np.isfinite(interp[active]).sum() == active.sum() - 2  # the two NaN-hyper cells
+
+
+def test_chunking_is_invisible(caplog):
+    """Tiny chunks (many padded tiles) give the same fields as one chunk."""
+    ds = make_tiny_dataset()
+    hyp = _hypers(ds)
+    one = TD.interpolate_daily(ds, 0, 0.2, TD.DailyConfig(dtype="float64", buckets=(256,)),
+                               precomputed_hypers=hyp, device="cpu")
+    with caplog.at_level("INFO", logger=TD.__name__):
+        many = TD.interpolate_daily(
+            ds, 0, 0.2, TD.DailyConfig(dtype="float64", buckets=(256,), max_chunk_bytes=4e6),
+            precomputed_hypers=hyp, device="cpu",
+        )
+    (n, cells, tile, _), = [r.args for r in caplog.records]
+    assert n == 256 and cells == np.isfinite(ds.sie[:, :, 4]).sum()
+    assert tile < cells  # several chunks, the last one padded
+    np.testing.assert_allclose(many.interp, one.interp, atol=1e-12, rtol=0)
+    np.testing.assert_allclose(many.lZ, one.lZ, rtol=1e-12, atol=0)
+
+
+def test_chunk_rows_tiles_evenly():
+    cfg = TD.DailyConfig(max_chunk_bytes=16e9)
+    # K2 scratch, (N^2 + 128 N) * 4 bytes a row: 3,384 rows fit at N = 1024,
+    # so 8,000 rows go in 3 tiles of 2,672
+    assert TD._chunk_rows(1024, 8000, cfg, 4) == 2672
+    assert TD._chunk_rows(512, 56, cfg, 4) == 56
+    # blocked, 2.5 (N, N) buffers a row: 88 rows fit at N = 4096
+    assert TD._chunk_rows(4096, 1600, cfg, 4) == 88
+    assert TD._chunk_rows(4096, 8, TD.DailyConfig(max_chunk_bytes=1.0), 4) == 8
+
+
+def test_requires_hypers_until_pass1_is_ported():
+    with pytest.raises(NotImplementedError, match="pass 1"):
+        TD.interpolate_daily(make_tiny_dataset(), 0, 0.2, device="cpu")
+
+
+def test_load_hypers(tmp_path):
+    ds = make_tiny_dataset()
+    hyp = _hypers(ds)
+    path = tmp_path / "h.npz"
+    np.savez(path, **hyp)
+    got = TD.load_hypers(str(path))
+    for k in TD.HYPER_NAMES:
+        np.testing.assert_array_equal(got[k], hyp[k])
+        assert got[k].dtype == np.float64
+    with pytest.raises(ValueError, match="missing"):
+        TD.load_hypers({k: v for k, v in hyp.items() if k != "sn2"})
+
+
+def test_cli_daily_writes_reference_pickle(tmp_path, capsys):
+    d = str(tmp_path)
+    cli.main(["synth", "--outdir", d, "--grid-res", "200", "--n-days", "9", "--seed", "3"])
+    g = np.load(os.path.join(d, "x_200km.npy")).shape[0]
+    np.savez(os.path.join(d, "h.npz"), **{k: np.full((g, g), v) for k, v in zip(
+        TD.HYPER_NAMES, (2e5, 2e5, 2.0, 0.03, 0.005))})
+    capsys.readouterr()
+    cli.main(["daily", "--datapath", d, "--grid-res", "200", "--fyi",
+              os.path.join(d, "CS2_FYI_synthetic_200km.npy"), "--fyi-offset", "0",
+              "--hypers", os.path.join(d, "h.npz"), "--outdir", d, "--device", "cpu"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["date"] == "20181205" and line["cells"] > 0
+    with open(line["output"], "rb") as f:
+        res = pickle.load(f)
+    assert len(res) == 15 and f"{line['date']}_interp_error_smth" in res
+    assert np.isfinite(res[f"{line['date']}_interp"]).sum() == line["cells"]
+
+
+def test_port_never_imports_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import optimalinterpolation_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    if not m.name.endswith('__main__'):  # the CLI entry runs on import\n"
+        "        importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+        "'optimalinterpolation_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -1,0 +1,82 @@
+"""The port's copies of the numpy data plane give the JAX package's arrays.
+
+window / reader / synthetic / prior must agree exactly. The JAX package
+gathers neighborhoods with its C++ grid hash where it is built, the port with
+SciPy's kd-tree: buckets, test inputs and cell order must agree exactly, and
+each row the same set of points (the order inside a row may differ).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from optimalinterpolation_tpu.data import neighbors as JN
+from optimalinterpolation_tpu.data import prior as JP
+from optimalinterpolation_tpu.data import reader as JR
+from optimalinterpolation_tpu.data import synthetic as JS
+from optimalinterpolation_tpu.data import window as JW
+from optimalinterpolation_tpu_torch.data import neighbors as TN
+from optimalinterpolation_tpu_torch.data import prior as TP
+from optimalinterpolation_tpu_torch.data import reader as TR
+from optimalinterpolation_tpu_torch.data import synthetic as TS
+from optimalinterpolation_tpu_torch.data import window as TW
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module")
+def seasons(tmp_path_factory):
+    """The same synthetic season written by both packages (100 km, 9 days)."""
+    out = {}
+    for tag, mod in (("jax", JS), ("torch", TS)):
+        d = str(tmp_path_factory.mktemp(tag))
+        out[tag] = (d, mod.make_synthetic_season(d, grid_res_km=100, n_days=9, seed=11))
+    return out
+
+
+def test_synthetic_and_reader_match(seasons):
+    (dj, (truth_j, dates_j)), (dt, (truth_t, dates_t)) = seasons["jax"], seasons["torch"]
+    np.testing.assert_array_equal(truth_t, truth_j)
+    assert dates_t == dates_j
+    a = JR.read_freeboard_season(dj, 100, "2018-2019")
+    b = TR.read_freeboard_season(dt, 100, "2018-2019")
+    for name in ("obs", "sie", "x", "y"):
+        np.testing.assert_array_equal(getattr(b, name), getattr(a, name), err_msg=name)
+    assert b.dates == a.dates and b.grid_res_km == a.grid_res_km
+    assert tuple(b.satellites) == tuple(a.satellites)
+
+
+def test_window_and_prior_match(seasons):
+    d, _ = seasons["torch"]
+    ds = TR.read_freeboard_season(d, 100, "2018-2019")
+    a = JW.flatten_window(ds.obs, ds.x, ds.y)
+    b = TW.flatten_window(ds.obs, ds.x, ds.y)
+    for name in ("x", "y", "t", "z", "xyt", "xy"):
+        np.testing.assert_array_equal(getattr(b, name), getattr(a, name), err_msg=name)
+    fyi = np.load(f"{d}/CS2_FYI_synthetic_100km.npy")
+    assert TP.constant_fyi_prior(fyi, 0, offset=0) == JP.constant_fyi_prior(fyi, 0, offset=0)
+    with pytest.raises(ValueError, match="empty"):
+        TP.constant_fyi_prior(fyi, 0)  # the reference product's offset 16 overruns 9 days
+
+
+@pytest.mark.parametrize("buckets", [(512, 1024, 2048, 4096), (64, 128, 256)])
+def test_gather_neighborhoods_matches(seasons, buckets):
+    d, _ = seasons["torch"]
+    ds = TR.read_freeboard_season(d, 100, "2018-2019")
+    train = TW.flatten_window(ds.obs, ds.x, ds.y)
+    ij = np.nonzero(np.isfinite(ds.sie[:, :, 4]))
+    cells = np.stack([ds.x[ij], ds.y[ij]], axis=1)
+    kw = dict(t_star=4.0, radius_m=300e3, buckets=buckets, dtype=np.float64)
+    a = JN.gather_neighborhoods(train, cells, **kw)
+    b = TN.gather_neighborhoods(train, cells, **kw)
+    assert [x.capacity for x in b] == [x.capacity for x in a] and len(a) > 0
+    for ba, bb in zip(a, b):
+        assert bb.n_valid_cells == ba.n_valid_cells
+        np.testing.assert_array_equal(bb.cell_index, ba.cell_index)
+        np.testing.assert_array_equal(bb.xstar, ba.xstar)
+        np.testing.assert_array_equal(bb.mask.sum(1), ba.mask.sum(1))
+        for r in range(len(ba)):
+            k = int(ba.mask[r].sum())
+            pa = np.column_stack([ba.x[r, :k], ba.z[r, :k]])
+            pb = np.column_stack([bb.x[r, :k], bb.z[r, :k]])
+            np.testing.assert_array_equal(pb[np.lexsort(pb.T)], pa[np.lexsort(pa.T)])
