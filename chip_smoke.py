@@ -6,20 +6,36 @@ CUDA card and ``nvcc``, imports nothing of JAX, and prints one JSON line per
 phase:
 
   1. device  torch sees a card; nvidia-smi's name and power limit; TF32 off.
-  2. build   K1 and K2 compiled from csrc/ (seconds, ptxas register lines).
+  2. build   K1, K2 and K3 compiled from csrc/ (seconds, ptxas register lines).
   3. K1      1,024 random SPD blocks plus one non-PD block, against the
              float64 twin: |L L^T - D|_max <= 1e-5 |D|_max, logdet within
-             1e-4 relative, ok identical; kernel and float32-twin times.
+             1e-4 relative, ok identical; kernel, float32-twin and library
+             times, also at 352 blocks (a launch of the 2048 bucket).
   4. K2      N = 512 and 1024, B = 64 (one cell with NaN hypers), against the
              float64 twin: |d mean|, |d std| <= 1e-4 m (the whole-flow float32
              tolerance of tests/test_reference_flow.py), lZ within 1e-4
              relative, ok identical, the NaN cell NaN in both.
-  5. slice   the quicklook day through ``cli.main(["daily", ..., "--hypers",
+  5. K3      value and gradient at N = 128 (all four kernel families), 512
+             and 1024, B = 132 (one cell per SM; masked rows, differing
+             hypers, one all-padding row, one NaN row) against the float64
+             twin: value within 1e-5 relative, gradient within
+             max(1e-3 |g|_inf, 4 x the float32 twin's own deviation).
+  6. slice   the quicklook day through ``cli.main(["daily", ..., "--hypers",
              H])`` on a synthetic 25 km season (320 x 320 grid, 300 km / 9-day
              window, buckets 512-4096): 15 keys, every active cell finite, K1
              and K2 launched, 64 cells of each bucket within 1e-4 m of the
              float64 twin; per-bucket walls and cells/s; rmse vs the
              synthetic truth.
+  7. fit     the full two-pass day through ``cli.main(["daily", ...])``
+             without ``--hypers`` on the same season: seed pass, per-cell
+             L-BFGS fit through K3, predict, smoothing, second predict. 15
+             keys, every active cell finite in every field, K1, K2 and both
+             K3 variants launched; for 64 cells of each bucket the pass-2
+             prediction within 1e-4 m of the float64 twin at the pickle's
+             smoothed hypers, and the float64 NLL at the fitted hypers
+             against what a float64 fit reaches from there (median <= 0.05
+             nats, mean <= 0.7; K3's fit against the float32 twin's from one
+             start, p95 <= 0.05).
 
 Then a ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -63,6 +79,22 @@ def _ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# NVIDIA's data sheet for the H100 SXM: float32 outside the tensor cores (TF32
+# is ruled out in Cholesky chains) and device-memory rate.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def _bound(n_bytes: float, flops: float) -> dict:
+    """The least milliseconds the card could take: the bytes the function
+    must move (inputs read once, outputs written once) over the memory rate,
+    or its operations over the float32 peak, whichever is larger."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def phase_device() -> str:
@@ -127,11 +159,26 @@ def phase_k1() -> dict:
         _fail(f"K1 |W L - I|_max = {inv} > 1e-4")
     if not ld_rel <= 1e-4:
         _fail(f"K1 logdet relative error {ld_rel} > 1e-4")
-    ms = _ms(lambda: blocked_gp._factor_invert(d), 20)
-    plain_ms = _ms(lambda: blocked_gp._factor_invert_plain(d), 20)
+    def library(blocks):
+        # one PyTorch call pair for the same function; the port never calls
+        # it on a CUDA tensor
+        l_, _ = torch.linalg.cholesky_ex(blocks)
+        return torch.linalg.solve_triangular(l_, eye32.expand_as(l_), upper=False)
+
+    eye32 = torch.eye(128, dtype=torch.float32, device="cuda")
+    times = {}
+    for nblk in (1025, 352):  # 352: one launch of the 2048 bucket's tiles
+        dd_ = d[:nblk]
+        times[nblk] = {
+            "ms": _ms(lambda: blocked_gp._factor_invert(dd_), 20),
+            "plain_ms": _ms(lambda: blocked_gp._factor_invert_plain(dd_), 20),
+            "library_ms": _ms(lambda: library(dd_), 20),
+            # d read, L and W written; factor and inverse 128^3 / 3 FLOP each
+            **_bound(nblk * (3 * 128 * 128 * 4 + 5), nblk * 2 * 128 ** 3 / 3),
+        }
     _phase("K1", blocks=int(d.shape[0]), recon_rel=recon, w_l_minus_i=inv, logdet_rel=ld_rel,
-           max_abs_err_l=l_err, ms=ms, plain_ms=plain_ms)
-    return {"max_abs_err": l_err, "ms": ms, "plain_ms": plain_ms}
+           max_abs_err_l=l_err, times={str(k): v for k, v in times.items()})
+    return {"shape": "352 blocks of 128x128", "max_abs_err": l_err, **times[352]}
 
 
 def _k2_problem(rng, b: int, n: int):
@@ -183,143 +230,401 @@ def phase_k2() -> dict:
         _phase("K2", n=n, cells=64, d_mean=dm, d_std=ds, d_lz_rel=dl,
                twin32_d_mean=tm, twin32_d_std=ts, twin32_d_lz_rel=tl, ms=ms, plain_ms=plain_ms)
         report["max_abs_err"] = max(report["max_abs_err"], dm, ds)
-        report.update(ms=ms, plain_ms=plain_ms)  # the N = 1024 times are kept
+        # the N = 1024 times are kept; inputs and the (B, 5) output against
+        # N^3 / 3 FLOP of Cholesky per cell
+        report.update(shape=f"N={n}, 64 cells", ms=ms, plain_ms=plain_ms, library_ms=None,
+                      **_bound(64 * (5 * n + 14) * 4, 64 * n ** 3 / 3))
     return report
 
 
-class _BucketLog(logging.Handler):
-    """Collects the daily pipeline's per-bucket records (N, cells, tile, s)."""
+def _k3_problem(rng, b: int, n: int):
+    """Rows with masks and differing hypers; row 2 all padding, the last NaN."""
+    x = rng.uniform(-3e5, 3e5, (b, n, 3)) * np.asarray([1, 1, 1.2e-5])
+    y = rng.normal(0.0, 0.05, (b, n))
+    mask = (rng.random((b, n)) < 0.85).astype(np.float64)
+    mask[2] = 0.0
+    h = np.log([1.5e5, 2.0e5, 2.0, 0.03, 0.005]) + rng.normal(0.0, 0.2, (b, 5))
+    h[-1] = np.nan
+    return [torch.tensor(a, dtype=torch.float32, device="cuda") for a in (h, x, y, mask)]
+
+
+def phase_k3() -> dict:
+    """Gate, fixed before the run: the value within 1e-5 relative of the
+    float64 twin (float32 rounding of a sum of ~N terms of size |nll|/N);
+    the gradient within max(1e-3 |g|_inf, 4 x the float32 twin's deviation),
+    over the batch: each gradient entry is a difference of two traces that
+    nearly cancel at an optimum, so float32 leaves an absolute error that
+    scales with the traces, not with the entry, and the plain float32 twin
+    on the same inputs shows how large that is."""
+    from optimalinterpolation_tpu_torch.ops import fused_gp
+    from optimalinterpolation_tpu_torch.ops.kernels import Kernel
+
+    rng = np.random.default_rng(2)
+    b = 132
+    report = {}
+    cases = [(128, k) for k in Kernel] + [(512, Kernel.MATERN32), (1024, Kernel.MATERN32)]
+    for n, kind in cases:
+        args = _k3_problem(rng, b, n)
+        kw = dict(kind=kind, jitter=1e-6)
+        value = fused_gp.gp_nll(*args, **kw)
+        nll, grad = fused_gp.gp_nll_and_grad(*args, **kw)
+        torch.cuda.synchronize()
+        ref_v, ref_g = fused_gp.gp_nll_and_grad_plain(*[a.double() for a in args], **kw)
+        twin_v, twin_g = fused_gp.gp_nll_and_grad_plain(*args, **kw)
+        if not torch.equal(value, nll):
+            _fail(f"K3 N={n} {kind.value}: the value and gradient launches differ in the value")
+        if not (torch.isinf(nll[-1]) and nll[-1] > 0 and torch.isnan(grad[-1]).all()
+                and torch.isinf(ref_v[-1]) and torch.isnan(ref_g[-1]).all()):
+            _fail(f"K3 N={n} {kind.value}: the NaN-hyper row is not (+inf, NaN)")
+        if not (nll[2] == 0 and (grad[2] == 0).all()):
+            _fail(f"K3 N={n} {kind.value}: the all-padding row is not (0, 0)")
+        ok = slice(0, b - 1)
+        if not torch.isfinite(ref_v[ok]).all():
+            _fail(f"K3 N={n} {kind.value}: the float64 twin failed to factor a row")
+        scale = ref_v[ok].abs().clamp_min(1.0)
+        dv = ((nll.double() - ref_v)[ok].abs() / scale).max().item()
+        tv = ((twin_v.double() - ref_v)[ok].abs() / scale).max().item()
+        dg = (grad.double() - ref_g)[ok].abs().max().item()
+        tg = (twin_g.double() - ref_g)[ok].abs().max().item()
+        gmax = ref_g[ok].abs().max().item()
+        tol = max(1e-3 * gmax, 4.0 * tg)
+        if not dv <= 1e-5:
+            _fail(f"K3 N={n} {kind.value}: value relative error {dv} > 1e-5")
+        if not dg <= tol:
+            _fail(f"K3 N={n} {kind.value}: gradient max |d| {dg} > {tol}")
+        line = dict(n=n, kind=kind.value, cells=b, d_value_rel=dv, twin32_d_value_rel=tv,
+                    d_grad=dg, twin32_d_grad=tg, grad_inf_norm=gmax, grad_tol=tol)
+        if kind is Kernel.MATERN32:
+            reps = 10 if n < 1024 else 5
+            line.update(
+                value_ms=_ms(lambda: fused_gp.gp_nll(*args, **kw), reps),
+                ms=_ms(lambda: fused_gp.gp_nll_and_grad(*args, **kw), reps),
+                plain_value_ms=_ms(lambda: fused_gp.gp_nll_plain(*args, **kw), reps),
+                plain_ms=_ms(lambda: fused_gp.gp_nll_and_grad_plain(*args, **kw), reps),
+            )
+            # the N = 1024 gradient launch is kept: inputs and the (B, 6)
+            # output against N^3 FLOP per cell (Cholesky, L^-T and the lower
+            # triangle of L^-T L^-1, N^3 / 3 each)
+            report = dict(shape=f"N={n}, {b} cells, value + gradient", max_abs_err=dg,
+                          value_rel_err=dv, ms=line["ms"], plain_ms=line["plain_ms"],
+                          value_ms=line["value_ms"], library_ms=None,
+                          **_bound(b * (5 * n + 11) * 4, b * float(n) ** 3))
+        _phase("K3", **line)
+    return report
+
+
+class _DailyLog(logging.Handler):
+    """Collects the daily pipeline's INFO records: per predicted bucket
+    ``(N, cells, tile rows, seconds)``, per stage a dict."""
 
     def __init__(self):
         super().__init__(logging.INFO)
         self.buckets = []
+        self.stages = []
 
     def emit(self, record):
-        self.buckets.append(record.args)
+        (self.stages if isinstance(record.args, dict) else self.buckets).append(record.args)
 
 
-def phase_slice() -> dict:
+RES_KM, N_DAYS, DAY, PRIOR = 25, 9, 0, 0.15
+# Gates of the fit's optimum, in nats of float64 NLL (see _check_optimum).
+NLL_TYPICAL = 0.05  # the typical (median) cell, and K3 against its float32 twin (p95)
+NLL_MEAN = 0.7  # the mean exact-NLL cost the JAX package accepted for its default objective
+HYPERS = ("ell_x", "ell_y", "ell_t", "sf2", "sn2")
+
+
+def _run_daily(tmp: str, extra_argv: list):
+    """``cli.main(["daily", ...])`` on the season in ``tmp`` with every
+    launch count at 0 before and read after. Returns (result dict, date,
+    launch counts, host synchronisations, wall seconds, log handler)."""
     from optimalinterpolation_tpu_torch import cli
-    from optimalinterpolation_tpu_torch.data.neighbors import gather_neighborhoods
-    from optimalinterpolation_tpu_torch.data.reader import read_freeboard_season
-    from optimalinterpolation_tpu_torch.data.synthetic import make_synthetic_season
-    from optimalinterpolation_tpu_torch.data.window import flatten_window
     from optimalinterpolation_tpu_torch.io.pickles import load_pickle
+    from optimalinterpolation_tpu_torch.models import optimizer
     from optimalinterpolation_tpu_torch.ops import blocked_gp, fused_gp
-    from optimalinterpolation_tpu_torch.pipeline.daily import DailyConfig
 
-    res_km, n_days, day = 25, 9, 0
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        # bench.py's synthetic season: seed 7, tracks (10, 3, 8, 8), noise 0.1
-        make_synthetic_season(tmp, grid_res_km=res_km, n_days=n_days, seed=7,
-                              tracks_per_day=(10, 3, 8, 8), noise_std=0.1)
-        synth_s = time.perf_counter() - t0
-        g = np.load(os.path.join(tmp, f"x_{res_km}km.npy")).shape[0]
-        hyp = os.path.join(tmp, "hypers.npz")
-        values = dict(ell_x=2e5, ell_y=2e5, ell_t=2.0, sf2=0.03, sn2=0.005)
-        np.savez(hyp, **{k: np.full((g, g), v) for k, v in values.items()})
+    handler = _DailyLog()
+    log = logging.getLogger("optimalinterpolation_tpu_torch.pipeline.daily")
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    argv = ["daily", "--datapath", tmp, "--grid-res", str(RES_KM), "--day", str(DAY),
+            "--prior-mean", str(PRIOR), "--outdir", tmp, *extra_argv]
+    counted = {"K1": blocked_gp._factor_invert, "K2": fused_gp.gp_predict,
+               "K3 value": fused_gp.gp_nll, "K3 grad": fused_gp.gp_nll_and_grad}
+    for fn in counted.values():
+        fn.launches = 0
+    optimizer._lbfgs_segment.host_syncs = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counted.items()}
+    log.removeHandler(handler)
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    res = load_pickle(line["output"])
+    if len(res) != 15:
+        _fail(f"the pickle has {len(res)} keys, not 15")
+    return res, line["date"], launches, optimizer._lbfgs_segment.host_syncs, wall, handler
 
-        handler = _BucketLog()
-        log = logging.getLogger("optimalinterpolation_tpu_torch.pipeline.daily")
-        log.addHandler(handler)
-        log.setLevel(logging.INFO)
-        argv = ["daily", "--datapath", tmp, "--grid-res", str(res_km), "--day", str(day),
-                "--prior-mean", "0.15", "--hypers", hyp, "--outdir", tmp]
-        blocked_gp._factor_invert.launches = 0
-        fused_gp.gp_predict.launches = 0
-        out = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            cli.main(argv)
-        torch.cuda.synchronize()
-        day_s = time.perf_counter() - t0
-        launches = {"K1": blocked_gp._factor_invert.launches, "K2": fused_gp.gp_predict.launches}
-        log.removeHandler(handler)
-        line = json.loads(out.getvalue().strip().splitlines()[-1])
 
-        res = load_pickle(line["output"])
-        date = line["date"]
-        if len(res) != 15:
-            _fail(f"the pickle has {len(res)} keys, not 15")
-        ds = read_freeboard_season(tmp, res_km, "2018-2019")
-        cfg = DailyConfig()
-        sie = ds.sie[:, :, day + cfg.t_mid]
-        active = np.isfinite(sie)
-        for key in ("interp", "interp_error", "lZ", "interp_smth", "interp_error_smth"):
+class _Day:
+    """The synthetic day's truth, active cells and neighborhood buckets,
+    gathered once for the checks of both daily phases."""
+
+    def __init__(self, tmp: str):
+        from optimalinterpolation_tpu_torch.data.neighbors import gather_neighborhoods
+        from optimalinterpolation_tpu_torch.data.reader import read_freeboard_season
+        from optimalinterpolation_tpu_torch.data.window import flatten_window
+        from optimalinterpolation_tpu_torch.pipeline.daily import DailyConfig
+
+        self.cfg = cfg = DailyConfig()
+        ds = read_freeboard_season(tmp, RES_KM, "2018-2019")
+        self.active = np.isfinite(ds.sie[:, :, DAY + cfg.t_mid])
+        self.active_ij = np.nonzero(self.active)
+        fyi = np.load(os.path.join(tmp, f"CS2_FYI_synthetic_{RES_KM}km.npy"))
+        self.truth = fyi[:, :, DAY + cfg.t_mid] + 0.02  # the FYI file is truth - 0.02 m
+        train = flatten_window(ds.obs[:, :, :, DAY:DAY + cfg.window_days], ds.x, ds.y)
+        cells_xy = np.stack([ds.x[self.active_ij], ds.y[self.active_ij]], axis=1)
+        self.batches = gather_neighborhoods(train, cells_xy, t_star=float(cfg.t_mid),
+                                            radius_m=cfg.radius_km * 1e3, dtype=np.float32)
+
+    def rows(self, b):
+        """The first 64 real rows of a bucket and their grid indices."""
+        rows = np.nonzero(b.cell_index >= 0)[0][:64]
+        ci = b.cell_index[rows]
+        return rows, self.active_ij[0][ci], self.active_ij[1][ci]
+
+    def rmse(self, field) -> float:
+        return float(np.sqrt(np.mean((field[self.active] - self.truth[self.active]) ** 2)))
+
+    def check_finite(self, res, date, keys):
+        for key in keys:
             field = res[f"{date}_{key}"]
-            if not np.isfinite(field[active]).all():
-                _fail(f"{key}: {int((~np.isfinite(field[active])).sum())} active cells not finite")
-        if launches["K1"] == 0 or launches["K2"] == 0:
-            _fail(f"the slice did not launch both kernels: {launches}")
-        fyi = np.load(os.path.join(tmp, f"CS2_FYI_synthetic_{res_km}km.npy"))
-        truth = fyi[:, :, day + cfg.t_mid] + 0.02  # the synthetic FYI file is truth - 0.02 m
-        fs = res[f"{date}_interp_smth"]
-        rmse = float(np.sqrt(np.mean((fs[active] - truth[active]) ** 2)))
+            if not np.isfinite(field[self.active]).all():
+                _fail(f"{key}: {int((~np.isfinite(field[self.active])).sum())} active cells "
+                      "not finite")
 
-        # 64 cells of each bucket again, through the float64 twin on the card
-        train = flatten_window(ds.obs[:, :, :, day:day + cfg.window_days], ds.x, ds.y)
-        active_ij = np.nonzero(active)
-        cells_xy = np.stack([ds.x[active_ij], ds.y[active_ij]], axis=1)
-        batches = gather_neighborhoods(train, cells_xy, t_star=float(cfg.t_mid),
-                                       radius_m=cfg.radius_km * 1e3, dtype=np.float32)
-        lh = torch.tensor(np.log([values[k] for k in ("ell_x", "ell_y", "ell_t", "sf2", "sn2")]),
-                          dtype=torch.float32)
+    def check_predict(self, res, date, hyper_suffix: str) -> dict:
+        """64 cells of each bucket again through the float64 twin on the
+        card, at the hypers the pickle holds: {N: (cells, |d mean|, |d std|)}."""
+        from optimalinterpolation_tpu_torch.ops import fused_gp
+
+        fs, es = res[f"{date}_interp_smth"], res[f"{date}_interp_error_smth"]
         check = {}
-        for b in batches:
-            rows = np.nonzero(b.cell_index >= 0)[0][:64]
-            ci = b.cell_index[rows]
-            gi, gj = active_ij[0][ci], active_ij[1][ci]
+        for b in self.batches:
+            rows, gi, gj = self.rows(b)
+            lh = np.log(np.stack([res[f"{date}_{k}{hyper_suffix}"][gi, gj] for k in HYPERS], 1))
             dm = ds_ = 0.0
             step = 16 if b.capacity >= 2048 else 64
             for s in range(0, len(rows), step):
                 r = rows[s:s + step]
-                f32 = [torch.from_numpy(a[r]) for a in (b.x, b.z, b.xstar, b.mask)]
-                args = [lh.expand(len(r), 5), f32[0], f32[1], f32[2], f32[3],
-                        torch.full((len(r),), 0.15, dtype=torch.float32)]
+                args = [torch.from_numpy(lh[s:s + step])] + [
+                    torch.from_numpy(a[r]) for a in (b.x, b.z, b.xstar, b.mask)
+                ] + [torch.full((len(r),), PRIOR)]
                 ref = fused_gp.gp_predict_plain(*[a.double().cuda() for a in args], jitter=1e-6)
                 if not bool(ref.ok.all()):
                     _fail(f"N={b.capacity}: the float64 twin failed to factor a cell")
                 sl = slice(s, s + len(r))
                 dm = max(dm, float(np.max(np.abs(fs[gi[sl], gj[sl]] - ref.mean.cpu().numpy()))))
-                es = res[f"{date}_interp_error_smth"][gi[sl], gj[sl]]
-                ds_ = max(ds_, float(np.max(np.abs(es - ref.std.cpu().numpy()))))
+                ds_ = max(ds_, float(np.max(np.abs(es[gi[sl], gj[sl]] - ref.std.cpu().numpy()))))
             if not (dm <= 1e-4 and ds_ <= 1e-4):
                 _fail(f"N={b.capacity}: |d mean| {dm}, |d std| {ds_} vs the float64 twin > 1e-4 m")
             check[b.capacity] = (len(rows), dm, ds_)
+        return check
 
+
+def phase_slice(tmp: str, day: _Day) -> dict:
+    g = day.active.shape[0]
+    hyp = os.path.join(tmp, "hypers.npz")
+    values = dict(ell_x=2e5, ell_y=2e5, ell_t=2.0, sf2=0.03, sn2=0.005)
+    np.savez(hyp, **{k: np.full((g, g), v) for k, v in values.items()})
+    torch.cuda.reset_peak_memory_stats()
+    res, date, launches, _, day_s, handler = _run_daily(tmp, ["--hypers", hyp])
+    day.check_finite(res, date, ("interp", "interp_error", "lZ", "interp_smth",
+                                 "interp_error_smth"))
+    if launches["K1"] == 0 or launches["K2"] == 0:
+        _fail(f"the slice did not launch both kernels: {launches}")
+    check = day.check_predict(res, date, "_smth")
     buckets = []
     for n, cells, tile, wall in handler.buckets:
         buckets.append({"n": n, "cells": cells, "tile": tile, "wall_s": wall,
                         "cells_per_s": cells / wall, "checked": check[n][0],
                         "d_mean_vs_f64": check[n][1], "d_std_vs_f64": check[n][2]})
     predict_s = sum(b["wall_s"] for b in buckets)
-    _phase("slice", date=date, grid=g, active_cells=int(active.sum()), synth_s=synth_s,
-           day_wall_s=day_s, predict_wall_s=predict_s,
-           cells_per_s_predict=int(active.sum()) / predict_s,
-           cells_per_s_day=int(active.sum()) / day_s, rmse_vs_truth_m=rmse,
+    n_active = int(day.active.sum())
+    _phase("slice", date=date, grid=g, active_cells=n_active, day_wall_s=day_s,
+           predict_wall_s=predict_s, cells_per_s_predict=n_active / predict_s,
+           cells_per_s_day=n_active / day_s,
+           rmse_vs_truth_m=day.rmse(res[f"{date}_interp_smth"]),
            launches=launches, buckets=buckets,
            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return launches
+
+
+def _check_optimum(day: _Day, res, date) -> dict:
+    """For 64 cells of each bucket, on the problem the pipeline fitted (the
+    shuffled 1,024-point prefix), everything evaluated by the float64 twin:
+
+    * ``gap``: the NLL at the hypers the fit wrote, minus the NLL a float64
+      fit of the plain objective reaches from there under the same stopping
+      rule. The starts of the pipeline's fine pass (nearest seed, then the
+      cascade) are not kept, so the float64 fit starts from the fitted
+      hypers themselves: the gap says what float64 L-BFGS still finds to
+      gain there, whichever basin the start led to.
+    * ``k3_vs_twin32``: from the same cold start (the reference x0), the
+      float32 fit through K3 against the float32 fit through the plain
+      autograd objective: NLL at K3's end minus NLL at the twin's end. Both
+      are limited by float32 in the same way, so this isolates the kernel.
+    * ``vs_cold_f64``: the NLL at the fitted hypers minus what a float64 fit
+      reaches from the cold x0 (16 cells), to show the basin.
+
+    Gates, fixed before the final run. A float32 L-BFGS cannot be held to
+    0.05 nats in every cell: the float32 NLL of ~1,000 points carries ~1e-3
+    nats of rounding noise, the size of the plateau tolerance, so in a few
+    percent of the cells a line search fails on noise, or the plateau rule
+    fires on it, up to some nats short of the float64 optimum, through the
+    plain float32 twin as through K3. So: (1) ``k3_vs_twin32`` at its 95th
+    percentile <= 0.05 nats: K3 drives the optimizer as far as the plain
+    float32 objective does; (2) the median ``gap`` <= 0.05 nats: the typical
+    cell sits at a float64 optimum; (3) the mean ``gap`` <= 0.7 nats, the
+    mean exact-NLL cost at which the JAX package accepted its default
+    (Nystrom) objective (``optimizer.py:86-92``), so the cells that stop
+    early cost the product no more than the reference's own choice does.
+    """
+    from optimalinterpolation_tpu_torch.models import exact_gp
+    from optimalinterpolation_tpu_torch.models.optimizer import (
+        OptimizeConfig,
+        optimize_mll_chunked,
+    )
+    from optimalinterpolation_tpu_torch.ops import fused_gp
+    from optimalinterpolation_tpu_torch.pipeline.daily import _permute_valid_points
+
+    kw = dict(max_iters=60, ftol_abs=1e-3, jitter=1e-6)
+    f64_cfg = OptimizeConfig(backend="xla", **kw)
+    x0 = exact_gp.HYPER_INIT_LOG(RES_KM * 1e3, dtype=torch.float64, device="cuda")
+
+    def stats(t):
+        return {"max": t.max().item(), "median": t.median().item(), "mean": t.mean().item(),
+                "p95": t.quantile(0.95).item(),
+                "share_above_0.05": (t > 0.05).double().mean().item()}
+
+    out = {}
+    for b in day.batches:
+        cap = min(b.capacity, day.cfg.opt_n_max)
+        if cap < b.capacity:
+            _permute_valid_points(b)  # the subsample the pipeline took
+        rows, gi, gj = day.rows(b)
+        lh = np.log(np.stack([res[f"{date}_{k}"][gi, gj] for k in HYPERS], 1))
+        h, x, z, m = (torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                      for a in (lh, b.x[rows, :cap], b.z[rows, :cap], b.mask[rows, :cap]))
+        data32 = (x, z - PRIOR, m)
+        data64 = tuple(a.double() for a in data32)
+
+        def nll64(hh):
+            return fused_gp.gp_nll_plain(hh.double(), *data64, jitter=1e-6)
+
+        at_fit = nll64(h)
+        if not torch.isfinite(at_fit).all():
+            _fail(f"N={b.capacity}: the float64 NLL at the fitted hypers is not finite")
+        polished = optimize_mll_chunked(h, *data64, f64_cfg, chunk_rows=64)
+        cold32 = x0.float().expand(len(rows), 5).contiguous()
+        k3_fit = optimize_mll_chunked(cold32, *data32, OptimizeConfig(**kw), chunk_rows=64)
+        twin_fit = optimize_mll_chunked(cold32, *data32, OptimizeConfig(backend="xla", **kw),
+                                        chunk_rows=64)
+        nc = 16  # the cold float64 fit takes a cell through ~50 iterations
+        cold64 = optimize_mll_chunked(x0.expand(nc, 5).contiguous(),
+                                      *(a[:nc] for a in data64), f64_cfg, chunk_rows=64)
+        out[b.capacity] = {
+            "cells": len(rows), "n_opt": cap, "gap": stats(at_fit - polished.nll),
+            "polish_iters_max": int(polished.iters.max()),
+            "k3_vs_twin32": stats(nll64(k3_fit.log_hypers) - nll64(twin_fit.log_hypers)),
+            "k3_iters_sum": int(k3_fit.iters.sum()), "twin32_iters_sum": int(twin_fit.iters.sum()),
+            "k3_converged": int(k3_fit.converged.sum()),
+            "twin32_converged": int(twin_fit.converged.sum()),
+            "vs_cold_f64": stats(at_fit[:nc] - cold64.nll),
+        }
+    return out
+
+
+def phase_fit(tmp: str, day: _Day) -> dict:
+    torch.cuda.reset_peak_memory_stats()
+    res, date, launches, syncs, day_s, handler = _run_daily(tmp, [])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    stages = []
+    for e in handler.stages:
+        e = dict(e)
+        if "converged" in e:
+            e["converged_share"] = e.pop("converged") / e["cells"]
+        stages.append(e)
+    fitted = [e for e in stages if e["stage"] == "opt"]
+    n_active = int(day.active.sum())
+    _phase("fit", date=date, active_cells=n_active, cut="none: the whole day",
+           day_wall_s=day_s, cells_per_s_day=n_active / day_s,
+           fit_wall_s=sum(e["wall_s"] for e in stages if "opt" in e["stage"]
+                          or "cascade" in e["stage"]),
+           predict_wall_s=sum(e["wall_s"] for e in stages if e["stage"] in ("predict", "pass2")),
+           converged_share=sum(e["converged_share"] * e["cells"] for e in fitted)
+           / sum(e["cells"] for e in fitted),
+           host_syncs=syncs, launches=launches,
+           rmse_vs_truth_m=day.rmse(res[f"{date}_interp_smth"]),
+           rmse_pass1_vs_truth_m=day.rmse(res[f"{date}_interp"]),
+           peak_mem_gb=peak, stages=stages)
+    day.check_finite(res, date, [k[len(date) + 1:] for k in res])
+    if min(launches.values()) == 0:
+        _fail(f"the two-pass day did not launch every kernel: {launches}")
+    check = day.check_predict(res, date, "_smth")
+    optimum = _check_optimum(day, res, date)
+    _phase("fit_check",
+           pass2_vs_f64={str(n): {"cells": c, "d_mean": dm, "d_std": ds_}
+                         for n, (c, dm, ds_) in check.items()},
+           optimum_vs_f64={str(n): v for n, v in optimum.items()})
+    for n, v in optimum.items():
+        if not v["k3_vs_twin32"]["p95"] <= NLL_TYPICAL:
+            _fail(f"N={n}: from the same start the fit through K3 ends "
+                  f"{v['k3_vs_twin32']['p95']} nats (p95) above the float32 twin's")
+        if not (v["gap"]["median"] <= NLL_TYPICAL and v["gap"]["mean"] <= NLL_MEAN):
+            _fail(f"N={n}: the float64 NLL at the fitted hypers is {v['gap']['median']} "
+                  f"(median) / {v['gap']['mean']} (mean) nats above what a float64 fit "
+                  f"reaches from there (> {NLL_TYPICAL} / {NLL_MEAN})")
     return launches
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False")
+    from optimalinterpolation_tpu_torch.data.synthetic import make_synthetic_season
+
     phase_device()
     phase_build()
     k1 = phase_k1()
     k2 = phase_k2()
-    launches = phase_slice()
+    k3 = phase_k3()
+    with tempfile.TemporaryDirectory() as tmp:
+        # bench.py's synthetic season: seed 7, tracks (10, 3, 8, 8), noise 0.1
+        make_synthetic_season(tmp, grid_res_km=RES_KM, n_days=N_DAYS, seed=7,
+                              tracks_per_day=(10, 3, 8, 8), noise_std=0.1)
+        day = _Day(tmp)
+        quick = phase_slice(tmp, day)
+        fit = phase_fit(tmp, day)
+
+    def paths(name):
+        return {"launches": fit[name], "launches_by_path": {"quicklook": quick[name],
+                                                            "fit": fit[name]}}
+
     kernels = [
         {"name": "K1 factor_invert_128", "route": "cuda",
          "source": "optimalinterpolation_tpu_torch/csrc/k1_factor_invert.cu",
-         "replaces": "optimalinterpolation_tpu/ops/blocked_gp.py:80",
-         "launches": launches["K1"], **k1},
+         "replaces": "optimalinterpolation_tpu/ops/blocked_gp.py:80", **paths("K1"), **k1},
         {"name": "K2 fused predict", "route": "cuda",
          "source": "optimalinterpolation_tpu_torch/csrc/k2_predict.cu",
-         "replaces": "optimalinterpolation_tpu/ops/pallas_gp.py:795",
-         "launches": launches["K2"], **k2},
+         "replaces": "optimalinterpolation_tpu/ops/pallas_gp.py:795", **paths("K2"), **k2},
+        {"name": "K3 fused NLL + gradient", "route": "cuda",
+         "source": "optimalinterpolation_tpu_torch/csrc/k3_nll_grad.cu",
+         "replaces": "optimalinterpolation_tpu/ops/pallas_gp.py:501",
+         "launches": fit["K3 value"] + fit["K3 grad"],
+         "launches_by_path": {"quicklook": 0, "fit": {"value": fit["K3 value"],
+                                                      "grad": fit["K3 grad"]}}, **k3},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

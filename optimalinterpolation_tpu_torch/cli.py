@@ -1,18 +1,22 @@
 """Command-line interface of the PyTorch/CUDA port.
 
+  python -m optimalinterpolation_tpu_torch daily ...
+                                   one daily field: per-cell fit, predict,
+                                   smoothing, second predict
   python -m optimalinterpolation_tpu_torch daily --hypers H.npz ...
                                    one quicklook daily field (predict only)
   python -m optimalinterpolation_tpu_torch synth   synthetic season generator
 
 Argument names and defaults follow ``optimalinterpolation_tpu/cli.py`` for
-the arguments kept. ``daily`` needs ``--hypers`` (the ``.npz`` that the JAX
-package's ``hypers`` subcommand writes) until pass 1 is ported. ``--device``
-picks the card or, for tests and small runs, ``cpu``.
+the arguments kept. ``--hypers`` takes the ``.npz`` that the JAX package's
+``hypers`` subcommand writes. ``--device`` picks the card or, for tests and
+small runs, ``cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -28,6 +32,23 @@ def _add_daily_args(p):
     p.add_argument("--radius-km", type=float, default=300.0)
     p.add_argument("--kernel", default="matern32",
                    choices=["matern12", "matern32", "matern52", "se"])
+    p.add_argument("--max-iters", type=int, default=60)
+    p.add_argument("--ftol", type=float, default=1e-3,
+                   help="NLL plateau stop (nats/iteration); 0 disables and "
+                        "runs every cell to --max-iters / grad tolerance")
+    p.add_argument("--restarts", type=int, default=1,
+                   help="multi-restart optimization trajectories per cell")
+    p.add_argument("--warmstart-n", type=int, default=1024,
+                   help="optimize problems larger than this on a subsample "
+                        "first, then fine-tune at full size; 0 disables")
+    p.add_argument("--seed-stride", type=int, default=4,
+                   help="spatial seeding: cold-optimize every Nth grid cell, "
+                        "warm-start the rest from the nearest seed; 0 disables")
+    p.add_argument("--opt-n-max", type=int, default=None,
+                   help="cap hyperparameter estimation at a uniform N-point "
+                        "subsample per cell (prediction stays full-N); "
+                        "default 1024; 0 = full-N")
+    p.add_argument("--optimizer", default="lbfgs", choices=["lbfgs"])
     p.add_argument("--dtype", default="float32")
     p.add_argument("--jitter", type=float, default=1e-6)
     p.add_argument("--prior-mean", type=float, default=None,
@@ -37,14 +58,16 @@ def _add_daily_args(p):
                    help="FYI product start relative to the season start "
                         "(reference product: 16; synthetic/aligned: 0)")
     p.add_argument("--outdir", default=".")
-    p.add_argument("--hypers", required=True,
+    p.add_argument("--hypers", default=None,
                    help=".npz of precomputed hyperparameter fields "
                         "(ell_x, ell_y, ell_t, sf2, sn2): the quicklook "
-                        "opt=False path")
+                        "opt=False path, which skips the per-cell fit")
     p.add_argument("--device", default="cuda",
-                   help="torch device that runs the predict (default cuda)")
+                   help="torch device that runs the fit and the predict "
+                        "(default cuda)")
     p.add_argument("--verbose", action="store_true",
-                   help="per-bucket INFO logs (cells, tiles, seconds)")
+                   help="per-stage and per-bucket INFO logs (cells, tiles, "
+                        "iterations, seconds)")
 
 
 def _prior(args, ds, day: int) -> float:
@@ -62,6 +85,7 @@ def cmd_daily(args):
 
     from optimalinterpolation_tpu_torch.data.reader import read_freeboard_season
     from optimalinterpolation_tpu_torch.io.pickles import save_pickle
+    from optimalinterpolation_tpu_torch.models.optimizer import OptimizeConfig
     from optimalinterpolation_tpu_torch.ops.kernels import Kernel
     from optimalinterpolation_tpu_torch.pipeline.daily import (
         DailyConfig,
@@ -79,8 +103,14 @@ def cmd_daily(args):
     ds = read_freeboard_season(args.datapath, args.grid_res, args.season)
     cfg = DailyConfig(
         window_days=args.window_days, radius_km=args.radius_km,
-        kind=Kernel(args.kernel), dtype=args.dtype, jitter=args.jitter,
+        kind=Kernel(args.kernel),
+        opt=OptimizeConfig(method=args.optimizer, max_iters=args.max_iters,
+                           ftol_abs=args.ftol, restarts=args.restarts),
+        dtype=args.dtype, jitter=args.jitter, warmstart_n=args.warmstart_n,
+        spatial_seed_stride=args.seed_stride,
     )
+    if args.opt_n_max is not None:
+        cfg = dataclasses.replace(cfg, opt_n_max=args.opt_n_max)
     res = interpolate_daily(
         ds, args.day, _prior(args, ds, args.day), cfg,
         precomputed_hypers=args.hypers, device=args.device,
@@ -105,7 +135,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser("optimalinterpolation_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
-    p = sub.add_parser("daily", help="produce one quicklook daily field")
+    p = sub.add_parser("daily", help="produce one daily field")
     _add_daily_args(p)
     p.add_argument("--day", type=int, default=0, help="window start index")
     p.set_defaults(fn=cmd_daily)

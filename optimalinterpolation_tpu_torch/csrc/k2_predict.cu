@@ -28,77 +28,16 @@
 // tensor cores: wgmma, TMA and several CTAs per cell are later work.
 #include <cuda_runtime.h>
 
-#include "factor_invert.cuh"
+#include "gp_common.cuh"
 
 namespace {
 
 using oi::BLK;
 using oi::LDS;
-
-constexpr int kThreads = 512;  // 32 x 16 threads, a 4x8 output tile each
-constexpr float kLog2Pi = 1.8378770664093453f;
-
-// k / sf2 as a function of the scaled squared distance d2
-// (pallas_gp.py::_shape_fn). kind: 0 Matern-1/2, 1 Matern-3/2,
-// 2 Matern-5/2, 3 squared exponential.
-__device__ inline float shape_fn(int kind, float d2) {
-  switch (kind) {
-    case 0:
-      return expf(-sqrtf(d2));
-    case 1: {
-      const float r = sqrtf(3.f * d2);
-      return (1.f + r) * expf(-r);
-    }
-    case 2: {
-      const float r = sqrtf(5.f * d2);
-      return (1.f + r + r * r / 3.f) * expf(-r);
-    }
-    default:
-      return expf(-0.5f * d2);
-  }
-}
-
-__device__ inline void load_block(float* s, const float* g, int r0, int c0,
-                                  int n) {
-  for (int e = threadIdx.x; e < BLK * BLK; e += blockDim.x) {
-    const int r = e / BLK;
-    const int c = e % BLK;
-    s[r * LDS + c] = g[static_cast<size_t>(r0 + r) * n + c0 + c];
-  }
-}
-
-// acc = a b^T for two 128x128 shared-memory tiles (row stride LDS). Thread
-// (ty, tx) owns rows ty + 32 ii and columns tx + 16 jj: a warp reads two rows
-// of a and sixteen of b per step, all on distinct banks.
-__device__ inline void tile_abt(const float* a, const float* b,
-                                float acc[4][8]) {
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) acc[ii][jj] = 0.f;
-#pragma unroll 4
-  for (int t = 0; t < BLK; ++t) {
-    float av[4];
-    float bv[8];
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii) av[ii] = a[(ty + 32 * ii) * LDS + t];
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) bv[jj] = b[(tx + 16 * jj) * LDS + t];
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj)
-        acc[ii][jj] = fmaf(av[ii], bv[jj], acc[ii][jj]);
-  }
-}
-
-__device__ inline float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o /= 2) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using oi::kLog2Pi;
+using oi::kThreads;
+using oi::shape_fn;
+using oi::warp_sum;
 
 __global__ void __launch_bounds__(kThreads, 1)
     k2_predict_kernel(const float* __restrict__ log_hypers,
@@ -124,104 +63,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int nb = n / BLK;
   float* A = a_scr + static_cast<size_t>(cell) * n * n;
   float* Wg = w_scr + static_cast<size_t>(cell) * n * BLK;
-  const float* lh = log_hypers + cell * 5;
-  const float inv_ell0 = expf(-lh[0]);
-  const float inv_ell1 = expf(-lh[1]);
-  const float inv_ell2 = expf(-lh[2]);
-  const float sf2 = expf(lh[3]);
-  const float sn2 = expf(lh[4]);
+  const oi::Hypers hyp = oi::load_hypers(log_hypers + cell * 5);
+  const float inv_ell0 = hyp.inv_ell0;
+  const float inv_ell1 = hyp.inv_ell1;
+  const float inv_ell2 = hyp.inv_ell2;
+  const float sf2 = hyp.sf2;
   const float mu = mean[cell];
 
-  // ---- 0. scaled coordinates and mask ------------------------------------
-  for (int i = tid; i < n; i += nt) {
-    const float* xi = x + (static_cast<size_t>(cell) * n + i) * 3;
-    q[i] = xi[0] * inv_ell0;
-    q[n + i] = xi[1] * inv_ell1;
-    q[2 * n + i] = xi[2] * inv_ell2;
-    q[3 * n + i] = mask[static_cast<size_t>(cell) * n + i];
-  }
-  __syncthreads();
-
-  // ---- 1. lower block triangle of A ---------------------------------------
-  const float dval = sf2 + sn2 + jitter * sf2;
-  for (int ib = 0; ib < nb; ++ib) {
-    for (int jb = 0; jb <= ib; ++jb) {
-      for (int e = tid; e < BLK * BLK; e += nt) {
-        const int i = ib * BLK + e / BLK;
-        const int j = jb * BLK + e % BLK;
-        const float mi = q[3 * n + i];
-        float v;
-        if (i == j) {
-          v = dval * mi + (1.f - mi);
-        } else {
-          const float d0 = q[i] - q[j];
-          const float d1 = q[n + i] - q[n + j];
-          const float d2 = q[2 * n + i] - q[2 * n + j];
-          v = sf2 * shape_fn(kind, d0 * d0 + d1 * d1 + d2 * d2) * mi *
-              q[3 * n + j];
-        }
-        A[static_cast<size_t>(i) * n + j] = v;
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- 2. right-looking blocked Cholesky ----------------------------------
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  float logdet = 0.f;
-  bool ok = true;
-  float acc[4][8];
-  for (int kb = 0; kb < nb; ++kb) {
-    const int k0 = kb * BLK;
-    load_block(sd, A, k0, k0, n);
-    for (int e = tid; e < BLK * BLK; e += nt)
-      sw[(e / BLK) * LDS + e % BLK] = (e / BLK == e % BLK) ? 1.f : 0.f;
-    __syncthreads();
-    float ld;
-    bool okk;
-    oi::factor_invert_128(sd, sw, ld, okk);
-    logdet += ld;
-    ok = ok && okk;
-    for (int e = tid; e < BLK * BLK; e += nt) {
-      const int r = e / BLK;
-      const int c = e % BLK;
-      A[static_cast<size_t>(k0 + r) * n + k0 + c] =
-          (c <= r) ? sd[r * LDS + c] : 0.f;
-      Wg[static_cast<size_t>(k0 + r) * BLK + c] = sw[r * LDS + c];
-    }
-    // panel: L_ik = A_ik W_kk^T
-    for (int ib = kb + 1; ib < nb; ++ib) {
-      __syncthreads();
-      load_block(sd, A, ib * BLK, k0, n);
-      __syncthreads();
-      tile_abt(sd, sw, acc);
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
-          A[static_cast<size_t>(ib * BLK + ty + 32 * ii) * n + k0 + tx +
-            16 * jj] = acc[ii][jj];
-    }
-    __syncthreads();
-    // trailing update of the lower block triangle: A_ij -= L_ik L_jk^T
-    for (int ib = kb + 1; ib < nb; ++ib) {
-      load_block(sd, A, ib * BLK, k0, n);
-      for (int jb = kb + 1; jb <= ib; ++jb) {
-        load_block(sw, A, jb * BLK, k0, n);
-        __syncthreads();
-        tile_abt(sd, sw, acc);
-#pragma unroll
-        for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-          for (int jj = 0; jj < 8; ++jj)
-            A[static_cast<size_t>(ib * BLK + ty + 32 * ii) * n + jb * BLK +
-              tx + 16 * jj] -= acc[ii][jj];
-        __syncthreads();
-      }
-    }
-    __syncthreads();
-  }
+  // ---- 0.-2. scaled coordinates, lower block triangle of A, Cholesky ------
+  oi::load_scaled_coords(q, x, mask, cell, n, hyp);
+  oi::build_cov_lower(A, q, n, kind, hyp, jitter);
+  float logdet;
+  bool ok;
+  oi::blocked_cholesky(A, Wg, sd, sw, n, logdet, ok);
 
   // ---- 3. dual forward solve: z = L^-1 ym, v = L^-1 k* --------------------
   const float xs0 = xstar[cell * 3] * inv_ell0;

@@ -1,13 +1,12 @@
-"""Exact Gaussian-process predict on masked/padded neighborhoods.
+"""Exact Gaussian-process regression on masked/padded neighborhoods.
 
-PyTorch counterpart of ``optimalinterpolation_tpu/models/exact_gp.py``, the
-predict block of the reference's ``GPR3D`` (``GPR_CS2S3.py:173-184``) and the
-semantic source of truth of the port: the blocked path and K2 are held
-against it. Hyperparameters live in log space as
+PyTorch counterpart of ``optimalinterpolation_tpu/models/exact_gp.py``: the
+reference's ``SMLII`` value (``GPR_CS2S3.py:107-141``) and the predict block
+of its ``GPR3D`` (``:173-184``). It is the semantic source of truth of the
+port: the blocked path, K2 and K3 are held against it, and the gradient of
+the objective comes from autograd here. Hyperparameters live in log space as
 ``[log ell_x, log ell_y, log ell_t, log sf2, log sn2]``
 (``GPR_CS2S3.py:120-122``). Every function takes any leading batch shape.
-
-The marginal-likelihood objective waits for the port's training slice.
 """
 
 from __future__ import annotations
@@ -20,7 +19,7 @@ import torch
 from optimalinterpolation_tpu_torch.ops import kernels as K
 from optimalinterpolation_tpu_torch.ops import linalg as L
 
-__all__ = ["HYPER_INIT_LOG", "PredictResult", "predict"]
+__all__ = ["HYPER_INIT_LOG", "neg_log_marginal_likelihood", "PredictResult", "predict"]
 
 _LOG2PI = 1.8378770664093453
 
@@ -49,6 +48,38 @@ def _unpack(log_hypers: torch.Tensor):
         torch.exp(log_hypers[..., 3]),
         torch.exp(log_hypers[..., 4]),
     )
+
+
+def neg_log_marginal_likelihood(
+    log_hypers: torch.Tensor,  # (..., 5)
+    x: torch.Tensor,  # (..., n, 3)
+    y: torch.Tensor,  # (..., n) centered observations
+    mask: torch.Tensor,  # (..., n)
+    kind: K.Kernel = K.Kernel.MATERN32,
+    jitter: float = 0.0,
+) -> torch.Tensor:
+    """Masked negative log marginal likelihood (the reference's ``SMLII``
+    value, ``GPR_CS2S3.py:126-128``):
+
+      nlZ = y^T A^-1 y / 2 + sum log diag L + n_valid log(2 pi) / 2
+
+    with ``n_valid = sum(mask)``, so padding changes nothing, and
+    ``jitter * sf2`` on the valid diagonal. ``y`` must already be centered
+    (the reference passes ``y - mX``). ``+inf`` where the Cholesky fails
+    (the ``LinAlgError -> inf`` path, ``:139-140``); its gradient there is
+    not finite or zero, and the optimizer rejects such a step on the value.
+    """
+    ell, sf2, sn2 = _unpack(log_hypers)
+    m = mask.to(x.dtype)
+    ym = y * m
+    a = L.masked_psd_matrix(
+        K.kernel_matrix(x, ell, sf2, kind=kind, mask=mask), sn2, mask, jitter * sf2
+    )
+    chol, ok = L.masked_cholesky(a)
+    alpha = L.chol_solve(chol, ym[..., None])[..., 0]
+    logdet = chol.diagonal(dim1=-2, dim2=-1).log().sum(dim=-1)
+    nlz = 0.5 * (ym * alpha).sum(dim=-1) + logdet + 0.5 * m.sum(dim=-1) * _LOG2PI
+    return torch.where(ok, nlz, math.inf)
 
 
 def predict(

@@ -1,9 +1,10 @@
 """Build, load and launch the port's hand-written CUDA kernels (``csrc/``).
 
-The kernels (K1 ``csrc/k1_factor_invert.cu``, K2 ``csrc/k2_predict.cu``) have
-a plain C interface. They are compiled with ``nvcc`` for ``sm_90a`` into one
-shared library under ``csrc/_build/`` at first use, keyed by a hash of the
-sources and flags, and loaded with ``ctypes``. Nothing here runs at import:
+The kernels (K1 ``csrc/k1_factor_invert.cu``, K2 ``csrc/k2_predict.cu``, K3
+``csrc/k3_nll_grad.cu``) have a plain C interface. They are compiled with
+``nvcc`` for ``sm_90a``, one ``nvcc`` per source and all at once, and linked
+into one shared library under ``csrc/_build/`` at first use, keyed by a hash
+of the sources and flags, and loaded with ``ctypes``. Nothing here runs at import:
 the CPU tests import every module on a machine without ``nvcc``.
 
 Every C entry takes its tensors as raw device pointers, then the device index
@@ -27,11 +28,11 @@ __all__ = ["build", "check", "launch"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
-SOURCES = ("k1_factor_invert.cu", "k2_predict.cu")
-HEADERS = ("factor_invert.cuh",)
+SOURCES = ("k1_factor_invert.cu", "k2_predict.cu", "k3_nll_grad.cu")
+HEADERS = ("factor_invert.cuh", "gp_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # Every pointer and the stream as c_void_p: ctypes would cut them to 32 bits.
@@ -42,6 +43,9 @@ _ENTRIES = {
     # log_hypers, x, y, xstar, mask, mean, a_scr, w_scr, out, b, n, kind,
     # jitter, device, stream
     "oi_k2_predict": (_P,) * 9 + (_I, _I, _I, _F, _I, _P),
+    # log_hypers, x, y, mask, a_scr, u_scr, w_scr, nll, grad, b, n, kind,
+    # jitter, with_grad, device, stream
+    "oi_k3_nll": (_P,) * 9 + (_I, _I, _I, _F, _I, _I, _P),
 }
 
 
@@ -65,15 +69,33 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+    nvcc = _nvcc()
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for s, o in zip(SOURCES, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]  # waits for every compile
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    try:
+        for s, p, out in zip(SOURCES, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {s} ({p.returncode}):\n{out}")
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        lib.with_suffix(".log").write_text("".join(logs) + link.stdout + link.stderr)
+        os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     return lib
 
 
@@ -106,6 +128,7 @@ def launch(entry: str, device: torch.device, *args) -> None:
     pointers), then the device index and the current stream; raise on a
     launch error."""
     lib = _library()
+    # a tensor goes as its device pointer; None is a null pointer
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     stream = torch.cuda.current_stream(device).cuda_stream
     err = getattr(lib, entry)(*conv, device.index, stream)

@@ -1,24 +1,31 @@
-"""Quicklook daily pan-Arctic interpolation (reference layer L3, predict pass).
+"""Two-pass daily pan-Arctic interpolation (reference layer L3).
 
-PyTorch counterpart of the ``precomputed_hypers`` path of
-``optimalinterpolation_tpu/pipeline/daily.py::interpolate_daily``: the
-reference's quicklook production scheme ``GPR3D(opt=False)``
-(``GPR_CS2S3.py:169-186``; ``QuickLook Data/README.txt``), which predicts
-every active cell once with given (G, G) hyperparameter fields. It produced
-the shipped quicklook NetCDFs and is the pass-2 half of the full two-pass day.
+PyTorch counterpart of ``optimalinterpolation_tpu/pipeline/daily.py``: the
+production flow of the reference's ``GPR_CS2S3.py:201-336``,
 
-Cells are gathered into fixed-size neighborhood buckets (``data.neighbors``);
-each bucket runs in chunks of one fixed tile size through
+  pass 1  optimize + predict every active cell          (:248-297)
+  smooth  clip + NaN-aware Gaussian smooth of the five
+          hyperparameter fields                          (:299-307)
+  pass 2  re-predict every cell with the smoothed hypers (:311-334)
+
+and, with ``precomputed_hypers``, its quicklook scheme ``GPR3D(opt=False)``
+(``:169-186``): one predict pass with given (G, G) hyperparameter fields.
+
+Cells are gathered into fixed-size neighborhood buckets (``data.neighbors``).
+The fit of a bucket is one lockstep L-BFGS over all its cells
+(``models.optimizer.optimize_mll_chunked``, objective K3), warm-started from
+a sublattice of seed cells and through a cascade of growing subsamples; the
+bucket's arrays and the L-BFGS state stay on the device from the first stage
+to the last. Each predict runs in chunks of one fixed tile size through
 ``models.exact_gp_batch.predict_batch`` (K2 for N <= 1024, the blocked path
 with K1 above), and each chunk's results come back to the host in one copy.
 
 Output keys replicate the reference result dict (``:290-307,333-334``).
-Pass 1 (per-cell hyperparameter optimization) and the smoothing between the
-passes are not ported yet.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import logging
 import time
@@ -33,10 +40,19 @@ from optimalinterpolation_tpu_torch.data.neighbors import (
     gather_neighborhoods,
 )
 from optimalinterpolation_tpu_torch.data.reader import ObsDataset
+from optimalinterpolation_tpu_torch.data.regrid import nearest_fill
 from optimalinterpolation_tpu_torch.data.window import flatten_window
+from optimalinterpolation_tpu_torch.models import exact_gp
 from optimalinterpolation_tpu_torch.models.exact_gp_batch import predict_batch
+from optimalinterpolation_tpu_torch.models.optimizer import (
+    _SEG_SCHEDULE,
+    OptimizeConfig,
+    _resolve_backend,
+    optimize_mll_chunked,
+)
 from optimalinterpolation_tpu_torch.ops import fused_gp
 from optimalinterpolation_tpu_torch.ops.kernels import Kernel
+from optimalinterpolation_tpu_torch.ops.smoothing import smooth_hyper_field
 
 __all__ = ["HYPER_NAMES", "DailyConfig", "DailyResult", "load_hypers", "interpolate_daily"]
 
@@ -47,29 +63,76 @@ logger = logging.getLogger(__name__)
 # Live (N, N) buffers per cell of the blocked path: A and its factor, plus
 # the block products' temporaries.
 _BLOCKED_BUFFERS = 2.5
+# Live (N, N) buffers per cell of the plain autograd objective (K, A, L, the
+# solves and what autograd keeps for the backward pass): a count from the
+# code, for sizes K3 does not take; not measured on the card.
+_AUTOGRAD_BUFFERS = 10
 
 
 @dataclasses.dataclass(frozen=True)
 class DailyConfig:
-    """The knobs of the quicklook path (the reference hardcodes them as
-    module globals, ``GPR_CS2S3.py:201-217``)."""
+    """Production knobs (the reference hardcodes them as module globals,
+    ``GPR_CS2S3.py:201-217``); defaults as in the JAX package's
+    ``DailyConfig``, whose comments give the reason for each."""
 
     window_days: int = 9  # T
     radius_km: float = 300.0
     kind: Kernel = Kernel.MATERN32
+    opt: OptimizeConfig = OptimizeConfig()
     buckets: Sequence[int] = DEFAULT_BUCKETS
     batch_multiple: int = 8
     dtype: str = "float32"
     jitter: float = 0.0
+    # L-BFGS iterations per sweep of the segmented pass-1 fit; between
+    # sweeps converged cells are compacted away.
+    opt_segment_iters: int = 10
+    # Subsampled warm start for problems larger than this: optimize on a
+    # warmstart_n-point prefix of each (shuffled) neighborhood first, then on
+    # doubled prefixes up to the full problem. 0 disables.
+    warmstart_n: int = 1024
+    # Cascade floor for seeded inits (a nearby cell's optimum needs only to
+    # adapt to this cell's data, which is 8x cheaper at 512 than at 1024).
+    warmstart_n_seeded: int = 512
+    # Subsample cap of the seed pass, whose hypers exist only to be
+    # nearest-filled into the second phase's inits. 0 disables.
+    seed_opt_n: int = 512
+    # Cap on the optimization problem of every bucket: hyperparameters are
+    # estimated from a uniform opt_n_max-point subsample of each neighborhood
+    # (prediction always uses the full neighborhood). 0 = off.
+    opt_n_max: int = 1024
+    # Spatial seeding: cold-optimize every stride-th grid cell, nearest-fill
+    # their hypers over the grid, then optimize all cells from those. Skipped
+    # when init_hypers are given. 0 or 1 disables.
+    spatial_seed_stride: int = 4
+    # Plateau tolerance (nats) of cascade stages, which only need to land in
+    # the next stage's basin.
+    warmstart_ftol: float = 0.1
+    # A cell whose log-hypers moved less than this (inf-norm) during a
+    # cascade stage skips the remaining cascade stages. 0 disables.
+    cascade_skip_tol: float = 0.05
+    # A warm-started fine pass begins with a zero-iteration sweep (initial
+    # NLL and gradient only), so cells converged at their start leave before
+    # any line search.
+    fine_entry_drain: bool = True
     # Device bytes one chunk of cells may hold in (N, N)-sized working
-    # memory: K2's (N, N) + (N, 128) scratch per cell, or _BLOCKED_BUFFERS
-    # (N, N) buffers on the blocked path. 16 GB leaves the rest of an 80 GB
-    # card to the kernel-matrix build's temporaries and the allocator.
+    # memory: K2's or K3's scratch per cell, _BLOCKED_BUFFERS (N, N) buffers
+    # on the blocked path. 16 GB leaves the rest of an 80 GB card to the
+    # kernel-matrix build's temporaries and the allocator.
     max_chunk_bytes: float = 16e9
+    # Smoothing (reference: std = 2 at 25 km else 1, GPR_CS2S3.py:299-302;
+    # clip vmaxes :303-307: ell_t T, sf2 0.1, sn2 0.05, ell_xy 2 * radius)
+    smooth_std: Optional[float] = None
+    sf2_vmax: float = 0.1
+    sn2_vmax: float = 0.05
 
     @property
     def t_mid(self) -> int:
         return self.window_days // 2
+
+    def smoothing_std(self, grid_res_km: int) -> float:
+        if self.smooth_std is not None:
+            return self.smooth_std
+        return 2.0 if grid_res_km == 25 else 1.0
 
 
 @dataclasses.dataclass
@@ -151,14 +214,23 @@ def _prior_rows(prior_cells, fill, cell_index, dtype):
     return rows
 
 
-def _chunk_rows(capacity: int, n_rows: int, cfg: DailyConfig, itemsize: int) -> int:
+def _chunk_rows(capacity: int, n_rows: int, cfg: DailyConfig, itemsize: int,
+                optimize: bool = False) -> int:
     """One launch tile per bucket: the fewest chunks the byte budget allows
     (at least ``batch_multiple`` rows), split evenly, in multiples of
-    ``batch_multiple``."""
-    if fused_gp.supported(capacity):
-        per_row = (capacity * capacity + capacity * fused_gp.BLK) * itemsize
+    ``batch_multiple``. ``optimize`` sizes for the objective with its
+    gradient: K3's two (N, N) scratches and its (N, 128) one per cell, or the
+    plain autograd path's buffers where K3 does not take N."""
+    n2 = capacity * capacity
+    if optimize:
+        if fused_gp.supported(capacity):
+            per_row = (2 * n2 + capacity * fused_gp.BLK) * itemsize
+        else:
+            per_row = _AUTOGRAD_BUFFERS * n2 * itemsize
+    elif fused_gp.supported(capacity):
+        per_row = (n2 + capacity * fused_gp.BLK) * itemsize
     else:
-        per_row = _BLOCKED_BUFFERS * capacity * capacity * itemsize
+        per_row = _BLOCKED_BUFFERS * n2 * itemsize
     bm = cfg.batch_multiple
     cap = max(bm, int(cfg.max_chunk_bytes // per_row) // bm * bm)
     n_chunks = -(-n_rows // cap)
@@ -188,13 +260,199 @@ def _chunks_of(b: NeighborhoodBatch, tile: int):
         )
 
 
+def _permute_valid_points(b: NeighborhoodBatch, seed: int = 0):
+    """Shuffle each row's valid points in place with a fixed-seed generator
+    (the JAX package's order exactly: one ``default_rng(seed)``, one
+    ``permutation`` per row with more than one point, in row order).
+
+    The GP does not depend on the order of its training points, but after
+    the shuffle every PREFIX of a row is a uniform random subsample of its
+    neighborhood, and the prefixes are nested: each cascade stage sees a
+    superset of the previous stage's data."""
+    rng = np.random.default_rng(seed)
+    counts = b.mask.sum(axis=1).astype(np.int64)
+    for r in range(len(b)):
+        k = int(counts[r])
+        if k > 1:
+            p = rng.permutation(k)
+            b.x[r, :k] = b.x[r, p]
+            b.z[r, :k] = b.z[r, p]
+
+
+def _prefix_subset(x, z, mask, n_sub: int):
+    """The first ``n_sub`` neighbor slots of a bucket's device arrays (valid
+    points sit at the front, so after :func:`_permute_valid_points` this is
+    a uniform ``n_sub``-point subsample; the mask carries rows with fewer)."""
+    if n_sub >= x.shape[1]:
+        return x, z, mask
+    return x[:, :n_sub].contiguous(), z[:, :n_sub].contiguous(), mask[:, :n_sub].contiguous()
+
+
+def _smooth_fields(grids: dict, vmaxes: dict, sie_day, std: float) -> dict:
+    """Clip + NaN-aware-smooth the 5 hyper fields (GPR_CS2S3.py:299-307), in
+    float64 on the host (see ``ops.smoothing``)."""
+    return {
+        name: smooth_hyper_field(grids[name], vmaxes[name], sie_day, std=std).numpy()
+        for name in HYPER_NAMES
+    }
+
+
+def _stage(stats: Optional[list], stage: str, n: int, cells: int, t0: float,
+           iters_sum: int = 0, **extra) -> None:
+    """Record one finished stage: an entry of ``stats`` (where the caller
+    gave a list) and an INFO record with the same fields."""
+    entry = {"stage": stage, "n": n, "cells": cells, "wall_s": time.perf_counter() - t0,
+             "iters_sum": iters_sum, **extra}
+    if stats is not None:
+        stats.append(entry)
+    logger.info("stage %s", entry)
+
+
+def _optimize_bucket(
+    full_b: NeighborhoodBatch,
+    x0: np.ndarray,
+    init_at_cells: Optional[np.ndarray],
+    prior_rows: np.ndarray,
+    cfg: DailyConfig,
+    opt_cfg: OptimizeConfig,
+    dtype,
+    device: torch.device,
+    stats: Optional[list],
+    seed_init: bool = False,
+    hypers_only: bool = False,
+) -> np.ndarray:
+    """Pass-1 hyperparameter optimization of one bucket: the warm-start
+    cascade (``DailyConfig.warmstart_n``) and the segmented, compacted fine
+    pass. Shuffles ``full_b``'s valid points in place where a subsample is
+    taken. Returns the (B, 5) optimized log-hypers on the host."""
+    prefix = "seed:" if hypers_only else ""  # of the stage names
+    # The optimization problem's size: capped to a uniform subsample in the
+    # seed pass and by opt_n_max; prediction always uses the full row.
+    cap = full_b.capacity
+    if hypers_only and cfg.seed_opt_n and cap > cfg.seed_opt_n:
+        cap = cfg.seed_opt_n
+    if cfg.opt_n_max and cap > cfg.opt_n_max:
+        cap = cfg.opt_n_max
+
+    h0_all = np.tile(np.asarray(x0, dtype)[None], (len(full_b), 1))
+    chained = False
+    if init_at_cells is not None:
+        ci = full_b.cell_index
+        realr = ci >= 0
+        vals = np.full((len(full_b), 5), np.nan)
+        vals[realr] = init_at_cells[ci[realr]]
+        warm = np.isfinite(vals).all(axis=1)
+        h0_all[warm] = np.log(np.maximum(vals[warm], 1e-300)).astype(dtype)
+        # Inits that cover the bucket make the few cold cells (a newly active
+        # ice edge) just take more fine iterations.
+        chained = warm.mean() > 0.5
+    # Restarts probe other basins from x0: pointless from a warm start.
+    fine_cfg = dataclasses.replace(opt_cfg, restarts=1) if chained else opt_cfg
+    # A day-chained init is THIS cell's optimum from an overlapping window,
+    # and subsample stages would pull it away: no cascade. A spatial-seed
+    # init is a NEARBY cell's optimum: cheap subsample stages adapt it to
+    # this cell's data before the full problem.
+    ws_n = cfg.warmstart_n_seeded if seed_init and cfg.warmstart_n_seeded else cfg.warmstart_n
+    use_cascade = bool((not chained or seed_init) and ws_n and cap > ws_n)
+    if cap < full_b.capacity or use_cascade:  # a prefix will be taken
+        _permute_valid_points(full_b)
+
+    # The bucket goes to the device once, centered, and stays there.
+    x_d, m_d = (torch.from_numpy(a).to(device) for a in (full_b.x, full_b.mask))
+    y_d = torch.from_numpy(full_b.z - prior_rows.astype(dtype)[:, None]).to(device)
+    h_d = torch.from_numpy(h0_all).to(device)
+
+    if use_cascade:
+        stage_ftol = max(opt_cfg.ftol_abs, cfg.warmstart_ftol)
+        # Restarts run only in the cheapest first stage; later stages polish
+        # the winner.
+        stage_cfg = dataclasses.replace(
+            opt_cfg, ftol_abs=stage_ftol, restarts=1 if chained else opt_cfg.restarts
+        )
+        n_sub = ws_n
+        active = torch.ones(len(full_b), dtype=torch.bool, device=device)
+        while n_sub < cap:
+            rows = torch.nonzero(active)[:, 0]
+            if rows.numel() == 0:  # every cell drained: no launch at all
+                n_sub *= 2
+                continue
+            t_stage = time.perf_counter()
+            sx, sy, sm = _prefix_subset(x_d, y_d, m_d, n_sub)
+            if rows.numel() < len(full_b):
+                sx, sy, sm = (a.index_select(0, rows) for a in (sx, sy, sm))
+            h_stage = h_d.index_select(0, rows)
+            wchunk = _chunk_rows(n_sub, stage_cfg.restarts * rows.numel(), cfg,
+                                 dtype.itemsize, optimize=True)
+            pre = optimize_mll_chunked(
+                h_stage, sx, sy, sm, stage_cfg, chunk_rows=wchunk,
+                segment_iters=cfg.opt_segment_iters,
+            )
+            if cfg.cascade_skip_tol > 0:
+                moved = (pre.log_hypers - h_stage).abs().amax(dim=1)
+                active[rows] = moved >= cfg.cascade_skip_tol
+            h_d[rows] = pre.log_hypers
+            stage_cfg = dataclasses.replace(opt_cfg, restarts=1, ftol_abs=stage_ftol)
+            _stage(stats, prefix + "cascade", n_sub, int(rows.numel()), t_stage,
+                   int(pre.iters.sum()), converged=int(pre.converged.sum()))
+            n_sub *= 2
+        fine_cfg = dataclasses.replace(stage_cfg, ftol_abs=opt_cfg.ftol_abs)
+
+    t_opt = time.perf_counter()
+    fx, fy, fm = _prefix_subset(x_d, y_d, m_d, cap)
+    chunk = _chunk_rows(cap, fine_cfg.restarts * len(full_b), cfg, dtype.itemsize, optimize=True)
+    # Warm entries (chained, seeded or cascade output) start with the
+    # zero-iteration verify sweep; from a cold x0 nothing is converged yet.
+    warm_entry = (chained or use_cascade) and cfg.fine_entry_drain
+    opt_all = optimize_mll_chunked(
+        h_d, fx, fy, fm, fine_cfg, chunk_rows=chunk, segment_iters=cfg.opt_segment_iters,
+        lead_schedule=((0,) + _SEG_SCHEDULE) if warm_entry else None,
+    )
+    lh_all = opt_all.log_hypers.cpu().numpy()
+    _stage(stats, prefix + "opt", cap, len(full_b), t_opt, int(opt_all.iters.sum()),
+           converged=int(opt_all.converged.sum()),
+           backend=_resolve_backend(fine_cfg, cap))
+    return lh_all
+
+
+def _predict_bucket(full_b: NeighborhoodBatch, lh_rows: np.ndarray, prior_cells, prior_fill,
+                    cfg: DailyConfig, dtype, device: torch.device):
+    """Predict every row of a bucket with its own log-hypers ``lh_rows``
+    (B, 5), in tiles of one size. Returns ``(out, tile)``: ``out`` (3, B) =
+    posterior mean, std and lZ per row, on the host."""
+    tile = _chunk_rows(full_b.capacity, len(full_b), cfg, dtype.itemsize)
+    out = np.empty((3, len(full_b)))
+    for s, b in zip(range(0, len(full_b), tile), _chunks_of(full_b, tile)):
+        lh = np.zeros((len(b), 5), dtype=dtype)
+        take = lh_rows[s : s + tile]
+        lh[: len(take)] = take
+        mean = _prior_rows(prior_cells, prior_fill, b.cell_index, dtype)
+        args = [torch.from_numpy(a).to(device) for a in (lh, b.x, b.z, b.xstar, b.mask, mean)]
+        pred = predict_batch(*args, kind=cfg.kind, jitter=cfg.jitter)
+        got = torch.stack([pred.mean, pred.std, pred.lZ]).cpu().numpy()  # one copy
+        out[:, s : s + tile] = got[:, : len(take)]
+    return out, tile
+
+
+def _log_rows(fields_at_cells: np.ndarray, cell_index: np.ndarray, dtype) -> np.ndarray:
+    """Per-bucket-row log-hypers from per-active-cell linear values, as
+    ``daily.py:824`` computes them (NaN stays NaN; padded rows get 0)."""
+    lh = np.zeros((len(cell_index), 5), dtype=dtype)
+    real = cell_index >= 0
+    lh[real] = np.log(np.maximum(fields_at_cells[cell_index[real]], 1e-30))
+    return lh
+
+
 def interpolate_daily(
     ds: ObsDataset,
     day: int,
     prior_mean,
     config: DailyConfig = DailyConfig(),
     precomputed_hypers: Optional[Union[str, dict]] = None,
+    init_hypers: Optional[dict] = None,
+    stats: Optional[list] = None,
     device: Union[str, torch.device] = "cuda",
+    _hypers_only: bool = False,
+    _seed_init: bool = False,
 ) -> DailyResult:
     """One daily interpolated field with uncertainty, on ``device``.
 
@@ -204,28 +462,52 @@ def interpolate_daily(
         ``ds.dates[day + T//2]`` (reference ``:211,216``).
       prior_mean: scalar prior mean (``data.prior.constant_fyi_prior``) or a
         (G, G) field whose NaN cells fall back to its finite mean.
-      precomputed_hypers: the quicklook hyperparameter fields, as
-        :func:`load_hypers` takes them. Required: without it the flow needs
-        pass 1, which is not ported yet.
+      precomputed_hypers: the QUICKLOOK path (``GPR3D(opt=False)``): (G, G)
+        hyperparameter fields as :func:`load_hypers` takes them. Pass 1 and
+        the smoothing are skipped; every cell is predicted once.
+      init_hypers: optional per-cell INITIALIZATION fields (a dict as
+        ``precomputed_hypers``, linear space): cells whose values are finite
+        start pass 1 from them instead of the reference x0, newly active
+        cells from the nearest such cell, and the subsample cascade and the
+        spatial seeding are skipped. The optimization still runs to the same
+        tolerances: this changes the path, not the target.
+      stats: optional list; one dict per stage is appended
+        ({stage, n, cells, wall_s, iters_sum, ...}; stages ``seed:cascade``,
+        ``seed:opt``, ``cascade``, ``opt``, ``predict``, ``smooth``,
+        ``pass2``).
 
-    Each bucket logs one INFO record with args ``(N, cells, tile rows,
-    seconds)``; the seconds end with the bucket's last results on the host.
+    Each predict logs one INFO record with args ``(N, cells, tile rows,
+    seconds)`` per bucket; the seconds end with the bucket's last results on
+    the host. Each stage logs one INFO record ``stage {...}``.
     """
-    if precomputed_hypers is None:
-        raise NotImplementedError(
-            "pass 1 (per-cell hyperparameter optimization, models/optimizer.py "
-            "of the JAX package) is not ported yet: pass precomputed_hypers"
-        )
     cfg = config
     device = torch.device(device)
     dtype = np.dtype(cfg.dtype)
     date = ds.dates[day + cfg.t_mid]
     sie_day = ds.sie[:, :, day + cfg.t_mid]
     shape = sie_day.shape
-    hypers = load_hypers(precomputed_hypers)
-    for name, field in hypers.items():
-        if field.shape != shape:
-            raise ValueError(f"{name} field shape {field.shape} != grid shape {shape}")
+
+    if cfg.spatial_seed_stride > 1 and init_hypers is None and precomputed_hypers is None:
+        # Phase A: cold-optimize the seed sublattice only (1/stride^2 of the
+        # cells). Phase B: every cell, initialized from its nearest seed.
+        s = cfg.spatial_seed_stride
+        seed_keep = np.zeros(shape, bool)
+        seed_keep[s // 2 :: s, s // 2 :: s] = True
+        if int((seed_keep & np.isfinite(sie_day)).sum()) >= 8:  # else the fill means little
+            seed_sie = ds.sie.copy()
+            seed_sie[~seed_keep] = np.nan
+            ds_seed = copy.copy(ds)
+            ds_seed.sie = seed_sie
+            flat_cfg = dataclasses.replace(cfg, spatial_seed_stride=0)
+            seed_res = interpolate_daily(
+                ds_seed, day, prior_mean, flat_cfg, stats=stats, device=device,
+                _hypers_only=True,
+            )
+            init = {name: nearest_fill(seed_res.hypers[name], ds.x, ds.y) for name in HYPER_NAMES}
+            return interpolate_daily(
+                ds, day, prior_mean, flat_cfg, init_hypers=init, stats=stats, device=device,
+                _seed_init=True,
+            )
 
     train = flatten_window(ds.obs[:, :, :, day : day + cfg.window_days], ds.x, ds.y)
     active_ij = np.nonzero(np.isfinite(sie_day))
@@ -235,39 +517,94 @@ def interpolate_daily(
         train, cells_xy, t_star=float(cfg.t_mid), radius_m=cfg.radius_km * 1000.0,
         buckets=cfg.buckets, batch_multiple=cfg.batch_multiple, dtype=dtype,
     )
-    # Per-cell log hypers, as daily.py:824 computes them (NaN stays NaN).
-    log_cells = np.log(np.maximum(
-        np.stack([hypers[k][active_ij] for k in HYPER_NAMES], axis=1), 1e-30
-    ))
 
-    interp = np.full(shape, np.nan)
-    interp_error = np.full(shape, np.nan)
-    lz_grid = np.full(shape, np.nan)
-    for full_b in batches:
+    def predict(full_b, lh_rows, grids, stage):
+        """Predict one bucket into ``grids`` (mean, std[, lZ])."""
         t0 = time.perf_counter()
-        tile = _chunk_rows(full_b.capacity, len(full_b), cfg, dtype.itemsize)
-        for b in _chunks_of(full_b, tile):
-            real = b.cell_index >= 0
-            lh = np.zeros((len(b), 5), dtype=dtype)
-            lh[real] = log_cells[b.cell_index[real]]
-            mean = _prior_rows(prior_cells, prior_fill, b.cell_index, dtype)
-            args = [torch.from_numpy(a).to(device) for a in (lh, b.x, b.z, b.xstar, b.mask, mean)]
-            pred = predict_batch(*args, kind=cfg.kind, jitter=cfg.jitter)
-            out = torch.stack([pred.mean, pred.std, pred.lZ]).cpu().numpy()  # one copy
-            _scatter(interp, active_ij, b.cell_index, out[0])
-            _scatter(interp_error, active_ij, b.cell_index, out[1])
-            _scatter(lz_grid, active_ij, b.cell_index, out[2])
+        out, tile = _predict_bucket(full_b, lh_rows, prior_cells, prior_fill, cfg, dtype, device)
+        for grid, values in zip(grids, out):
+            _scatter(grid, active_ij, full_b.cell_index, values)
         logger.info(
             "bucket N=%d: %d cells in %d-row tiles, %.3f s",
             full_b.capacity, full_b.n_valid_cells, tile, time.perf_counter() - t0,
         )
+        if stage is not None:
+            _stage(stats, stage, full_b.capacity, len(full_b), t0)
+
+    interp = np.full(shape, np.nan)
+    interp_error = np.full(shape, np.nan)
+    lz_grid = np.full(shape, np.nan)
+
+    if precomputed_hypers is not None:
+        hypers = load_hypers(precomputed_hypers)
+        for name, field in hypers.items():
+            if field.shape != shape:
+                raise ValueError(f"{name} field shape {field.shape} != grid shape {shape}")
+        at_cells = np.stack([hypers[k][active_ij] for k in HYPER_NAMES], axis=1)
+        for full_b in batches:
+            predict(full_b, _log_rows(at_cells, full_b.cell_index, dtype),
+                    (interp, interp_error, lz_grid), None)
+        return DailyResult(
+            date=date, interp=interp.copy(), interp_error=interp_error.copy(), lZ=lz_grid,
+            hypers=hypers, hypers_smth=hypers, interp_smth=interp,
+            interp_error_smth=interp_error,
+        )
+
+    x0 = exact_gp.HYPER_INIT_LOG(ds.grid_res_km * 1000.0, dtype=torch.float64).numpy()
+    init_at_cells = None
+    if init_hypers is not None:
+        # Newly active cells (the growing ice edge) have no init of their
+        # own: they take the nearest cell's. All-NaN fields fall back to x0.
+        init = load_hypers(init_hypers)
+        filled = {
+            name: nearest_fill(init[name], ds.x, ds.y, valid_mask=np.isfinite(sie_day))
+            for name in HYPER_NAMES
+        }
+        init_at_cells = np.stack([filled[name][active_ij] for name in HYPER_NAMES], axis=1)
+
+    # ---- pass 1: per-cell MLL optimization + prediction (GPR3D(opt=True)) --
+    hyper_grids = {name: np.full(shape, np.nan) for name in HYPER_NAMES}
+    opt_cfg = dataclasses.replace(cfg.opt, kind=cfg.kind, jitter=cfg.jitter)
+    for full_b in batches:
+        prior_rows = _prior_rows(prior_cells, prior_fill, full_b.cell_index, dtype)
+        lh_all = _optimize_bucket(
+            full_b, x0, init_at_cells, prior_rows, cfg, opt_cfg, dtype, device, stats,
+            seed_init=_seed_init, hypers_only=_hypers_only,
+        )
+        hyp = np.exp(lh_all.astype(np.float64))
+        for hi, name in enumerate(HYPER_NAMES):
+            _scatter(hyper_grids[name], active_ij, full_b.cell_index, hyp[:, hi])
+        if not _hypers_only:
+            predict(full_b, lh_all, (interp, interp_error, lz_grid), "predict")
+    if _hypers_only:
+        # Seed pass: only the hyper fields are consumed; no predict at all.
+        nan = np.full(shape, np.nan)
+        return DailyResult(
+            date=date, interp=interp, interp_error=interp_error, lZ=lz_grid,
+            hypers=hyper_grids, hypers_smth=hyper_grids, interp_smth=nan,
+            interp_error_smth=nan.copy(),
+        )
+
+    # ---- smoothing of hyperparameter fields (smooth(), :299-307) ----------
+    radius_m = cfg.radius_km * 1000.0
+    vmaxes = {
+        "ell_x": 2.0 * radius_m, "ell_y": 2.0 * radius_m, "ell_t": float(cfg.window_days),
+        "sf2": cfg.sf2_vmax, "sn2": cfg.sn2_vmax,
+    }
+    t_smooth = time.perf_counter()
+    hypers_smth = _smooth_fields(hyper_grids, vmaxes, sie_day, cfg.smoothing_std(ds.grid_res_km))
+    _stage(stats, "smooth", int(shape[0]), 5, t_smooth)
+
+    # ---- pass 2: re-predict with smoothed hypers (GPR3D(opt=False)) -------
+    interp_smth = np.full(shape, np.nan)
+    interp_error_smth = np.full(shape, np.nan)
+    smth_at_cells = np.stack([hypers_smth[name][active_ij] for name in HYPER_NAMES], axis=1)
+    for full_b in batches:
+        predict(full_b, _log_rows(smth_at_cells, full_b.cell_index, dtype),
+                (interp_smth, interp_error_smth), "pass2")
+
     return DailyResult(
-        date=date,
-        interp=interp.copy(),
-        interp_error=interp_error.copy(),
-        lZ=lz_grid,
-        hypers=hypers,
-        hypers_smth=hypers,
-        interp_smth=interp,
-        interp_error_smth=interp_error,
+        date=date, interp=interp, interp_error=interp_error, lZ=lz_grid,
+        hypers=hyper_grids, hypers_smth=hypers_smth, interp_smth=interp_smth,
+        interp_error_smth=interp_error_smth,
     )

@@ -1,4 +1,4 @@
-"""K1 and K2 on the card against their plain twins (marker ``cuda``).
+"""K1, K2 and K3 on the card against their plain twins (marker ``cuda``).
 
 These tests need an NVIDIA card and ``nvcc``; without them they skip. They
 import no JAX, so on the card they run without the suite's conftest:
@@ -95,6 +95,44 @@ def test_blocked_predict_on_card_uses_k1(card):
     torch.testing.assert_close(r.std.double(), ref.std, atol=1e-4, rtol=0)
 
 
+def _k3_problem(rng, b, n, card):
+    """Rows with masks, differing hypers, one all-padding row, one NaN row."""
+    x = rng.uniform(-3e5, 3e5, (b, n, 3)) * np.asarray([1, 1, 1.2e-5])
+    y = rng.normal(0.0, 0.05, (b, n))
+    mask = (rng.random((b, n)) < 0.85).astype(np.float64)
+    mask[2] = 0.0
+    h = np.tile(np.log([1.5e5, 2.0e5, 2.0, 0.03, 0.005]), (b, 1))
+    h[1] += 0.3
+    h[-1] = np.nan
+    return [torch.tensor(a, dtype=torch.float32, device=card) for a in (h, x, y, mask)]
+
+
+@pytest.mark.parametrize("kind,n", [(k, 128) for k in Kernel]
+                         + [(Kernel.MATERN32, 512), (Kernel.MATERN32, 1024)])
+def test_k3_matches_twin(card, kind, n):
+    args = _k3_problem(np.random.default_rng(n), 6, n, card)
+    before = (fused_gp.gp_nll.launches, fused_gp.gp_nll_and_grad.launches)
+    v = fused_gp.gp_nll(*args, kind=kind, jitter=1e-6)
+    nll, grad = fused_gp.gp_nll_and_grad(*args, kind=kind, jitter=1e-6)
+    assert (fused_gp.gp_nll.launches, fused_gp.gp_nll_and_grad.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref_v, ref_g = fused_gp.gp_nll_and_grad_plain(
+        *[a.double() for a in args], kind=kind, jitter=1e-6)
+    twin_v, twin_g = fused_gp.gp_nll_and_grad_plain(*args, kind=kind, jitter=1e-6)
+    assert torch.equal(v, nll)  # the two variants share the value's arithmetic
+    assert torch.isinf(nll[-1]) and nll[-1] > 0 and bool(torch.isnan(grad[-1]).all())
+    assert nll[2] == 0 and bool((grad[2] == 0).all())  # all padding: A = I
+    ok = slice(0, -1)
+    torch.testing.assert_close(nll.double()[ok], ref_v[ok], rtol=1e-5, atol=1e-5)
+    # float32 cancellation in Q = A^-1 - alpha alpha^T bounds the gradient:
+    # the kernel may deviate as far as a few times the float32 twin does
+    dev32 = (twin_g.double() - ref_g)[ok].abs().max().item()
+    tol = max(1e-3 * ref_g[ok].abs().max().item(), 4.0 * dev32)
+    assert (grad.double() - ref_g)[ok].abs().max().item() <= tol
+    again = fused_gp.gp_nll_and_grad(*args, kind=kind, jitter=1e-6)
+    assert torch.equal(again[0][ok], nll[ok]) and torch.equal(again[1][ok], grad[ok])
+
+
 def test_wrappers_refuse_float64_on_card(card):
     with pytest.raises(TypeError):
         blocked_gp._factor_invert(torch.eye(128, dtype=torch.float64, device=card)[None])
@@ -102,3 +140,5 @@ def test_wrappers_refuse_float64_on_card(card):
             for s in ((1, 5), (1, 128, 3), (1, 128), (1, 3), (1, 128), (1,))]
     with pytest.raises(TypeError):
         fused_gp.gp_predict(*args)
+    with pytest.raises(TypeError):
+        fused_gp.gp_nll_and_grad(args[0], args[1], args[2], args[4])

@@ -1,10 +1,16 @@
-"""The port's quicklook slice against the JAX package, float64 on the CPU.
+"""The port's daily pipeline against the JAX package, float64 on the CPU.
 
-``interpolate_daily(precomputed_hypers=...)`` of both packages runs on the
-same hand-sized dataset (tests/reference_flow.make_tiny_dataset) and the
-same hyperparameter fields, some of them NaN; all 15 reference-dict fields
-agree to 1e-9 with identical NaN masks. Also: the port's CLI end to end, and
-that the port never imports JAX.
+``interpolate_daily`` of both packages runs on the same hand-sized dataset
+(tests/reference_flow.make_tiny_dataset). The quicklook path takes the same
+hyperparameter fields, some of them NaN; all 15 reference-dict fields agree
+to 1e-9 with identical NaN masks. The two-pass day (fit, predict, smoothing,
+second predict) runs with the same ``DailyConfig``, once without and once
+with spatial seeding and the warm-start cascade, at buckets small enough
+that the JAX package takes its plain objective: predictions agree to 1e-6 m,
+hyper fields to 1e-5 relative (reached: ~1e-12 m and ~1e-10; both packages
+run the same L-BFGS in the same order), and the stages, their cells and
+their iteration sums are equal. Also: the port's CLI end to end, and that
+the port never imports JAX.
 """
 
 import json
@@ -17,8 +23,10 @@ import numpy as np
 import pytest
 import torch
 
+from optimalinterpolation_tpu.models import optimizer as JO
 from optimalinterpolation_tpu.pipeline import daily as JD
 from optimalinterpolation_tpu_torch import cli
+from optimalinterpolation_tpu_torch.models import optimizer as TO
 from optimalinterpolation_tpu_torch.pipeline import daily as TD
 
 from .reference_flow import make_tiny_dataset
@@ -104,9 +112,107 @@ def test_chunk_rows_tiles_evenly():
     assert TD._chunk_rows(4096, 8, TD.DailyConfig(max_chunk_bytes=1.0), 4) == 8
 
 
+def test_chunk_rows_optimize_model():
+    cfg = TD.DailyConfig(max_chunk_bytes=16e9)
+    # K3 with the gradient, (2 N^2 + 128 N) * 4 bytes a row: 1,797 rows fit at
+    # N = 1024, so 8,936 rows go in 5 tiles of 1,792
+    assert TD._chunk_rows(1024, 8936, cfg, 4, optimize=True) == 1792
+    assert TD._chunk_rows(512, 1256, cfg, 4, optimize=True) == 1256
+    # sizes K3 does not take count the autograd path's buffers
+    assert TD._chunk_rows(64, 56, cfg, 8, optimize=True) == 56
+    assert TD._chunk_rows(2048, 4000, cfg, 4, optimize=True) == 88
+
+
 def test_requires_hypers_until_pass1_is_ported():
-    with pytest.raises(NotImplementedError, match="pass 1"):
-        TD.interpolate_daily(make_tiny_dataset(), 0, 0.2, device="cpu")
+    """Pass 1 is ported: without hypers the call now starts the fit. What
+    still raises is an objective that is not ported, at the first bucket."""
+    cfg = TD.DailyConfig(dtype="float64", buckets=(128,),
+                         opt=TO.OptimizeConfig(backend="blocked"))
+    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
+        TD.interpolate_daily(make_tiny_dataset(), 0, 0.2, cfg, device="cpu")
+
+
+_SEEDED = dict(spatial_seed_stride=2, seed_opt_n=32, warmstart_n_seeded=32, warmstart_n=64,
+               opt_n_max=64)
+
+
+def _two_pass(mod, opt_mod, ds, stats, init_hypers=None, **kw):
+    cfg = mod.DailyConfig(dtype="float64", jitter=1e-6, buckets=(64, 128, 256),
+                          opt=opt_mod.OptimizeConfig(max_iters=15, ftol_abs=1e-3), **kw)
+    extra = {"device": "cpu"} if mod is TD else {}
+    return mod.interpolate_daily(ds, 0, 0.2, cfg, stats=stats, init_hypers=init_hypers, **extra)
+
+
+@pytest.mark.parametrize("seeding", [{"spatial_seed_stride": 0}, _SEEDED],
+                         ids=["flat", "seeded"])
+def test_two_pass_day_matches_jax(seeding):
+    ds = make_tiny_dataset()
+    jstats, tstats = [], []
+    ref = _two_pass(JD, JO, ds, jstats, **seeding).to_reference_dict()
+    got = _two_pass(TD, TO, ds, tstats, **seeding).to_reference_dict()
+    assert list(got) == list(ref) and len(got) == 15
+    for key, r in ref.items():
+        g = got[key]
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(r), err_msg=key)
+        if "interp" in key:
+            np.testing.assert_allclose(g, r, atol=1e-6, rtol=0, err_msg=key)
+        else:  # lZ and the ten hyper fields
+            np.testing.assert_allclose(g, r, rtol=1e-5, atol=0, err_msg=key)
+    active = np.isfinite(ds.sie[:, :, 4])
+    assert np.isfinite(got[f"{ds.dates[4]}_interp_smth"][active]).all()
+    fields = ("stage", "n", "cells", "iters_sum")
+    assert [[e[f] for f in fields] for e in tstats] == [[e[f] for f in fields] for e in jstats]
+    stages = [e["stage"] for e in tstats]
+    if seeding is _SEEDED:  # >= 8 seed cells, so the seed pass and the cascade ran
+        assert stages == ["seed:opt", "cascade", "opt", "predict", "smooth", "pass2"]
+        assert tstats[1]["n"] == 32 and tstats[2]["n"] == 64 and tstats[3]["n"] == 128
+    else:
+        assert stages == ["opt", "predict", "smooth", "pass2"]
+    opt = tstats[stages.index("opt")]
+    assert 0 < opt["converged"] <= opt["cells"] and opt["backend"] in ("fused", "xla")
+
+
+def test_init_hypers_chain_a_day_into_the_next():
+    """A day's optimized hypers as the next run's starts, as a season chains
+    them: the same result as the JAX package, under half the iterations, no
+    seed pass and no cascade; cells without an init take the nearest one's."""
+    ds = make_tiny_dataset()
+    cold_stats, warm_stats = [], []
+    cold = _two_pass(TD, TO, ds, cold_stats, spatial_seed_stride=0)
+    init = {k: v.copy() for k, v in cold.hypers.items()}
+    ii, jj = np.nonzero(np.isfinite(init["sf2"]))
+    for v in init.values():
+        v[ii[:5], jj[:5]] = np.nan  # newly active cells
+    ref_stats = []
+    ref = _two_pass(JD, JO, ds, ref_stats, init_hypers=init, spatial_seed_stride=2)
+    warm = _two_pass(TD, TO, ds, warm_stats, init_hypers=init, spatial_seed_stride=2)
+    assert [e["stage"] for e in warm_stats] == ["opt", "predict", "smooth", "pass2"]
+    assert [(e["stage"], e["iters_sum"]) for e in warm_stats] == [
+        (e["stage"], e["iters_sum"]) for e in ref_stats]
+    assert warm_stats[0]["iters_sum"] < cold_stats[0]["iters_sum"] / 2
+    np.testing.assert_allclose(warm.interp_smth, ref.interp_smth, atol=1e-6, rtol=0)
+    with pytest.raises(ValueError, match="missing"):
+        TD.interpolate_daily(ds, 0, 0.2, TD.DailyConfig(dtype="float64"),
+                             init_hypers={"sf2": init["sf2"]}, device="cpu")
+
+
+def test_permute_valid_points_reproduces_the_jax_order():
+    ds = make_tiny_dataset()
+    from optimalinterpolation_tpu_torch.data.neighbors import gather_neighborhoods
+    from optimalinterpolation_tpu_torch.data.window import flatten_window
+
+    train = flatten_window(ds.obs[:, :, :, 0:9], ds.x, ds.y)
+    ij = np.nonzero(np.isfinite(ds.sie[:, :, 4]))
+    cells = np.stack([ds.x[ij], ds.y[ij]], axis=1)
+    kw = dict(t_star=4.0, radius_m=300e3, buckets=(128, 256), dtype=np.float64)
+    (a,), (b,) = gather_neighborhoods(train, cells, **kw), gather_neighborhoods(train, cells, **kw)
+    np.testing.assert_array_equal(a.x, b.x)
+    JD._permute_valid_points(a)
+    TD._permute_valid_points(b)
+    assert not np.array_equal(a.x, gather_neighborhoods(train, cells, **kw)[0].x)
+    np.testing.assert_array_equal(b.x, a.x)
+    np.testing.assert_array_equal(b.z, a.z)
+    np.testing.assert_array_equal(b.mask, a.mask)
 
 
 def test_load_hypers(tmp_path):
@@ -138,6 +244,30 @@ def test_cli_daily_writes_reference_pickle(tmp_path, capsys):
         res = pickle.load(f)
     assert len(res) == 15 and f"{line['date']}_interp_error_smth" in res
     assert np.isfinite(res[f"{line['date']}_interp"]).sum() == line["cells"]
+
+
+def test_cli_daily_without_hypers_runs_the_two_pass_day(tmp_path, capsys):
+    d = str(tmp_path)
+    cli.main(["synth", "--outdir", d, "--grid-res", "200", "--n-days", "9", "--seed", "3"])
+    capsys.readouterr()
+    cli.main(["daily", "--datapath", d, "--grid-res", "200", "--fyi",
+              os.path.join(d, "CS2_FYI_synthetic_200km.npy"), "--fyi-offset", "0",
+              "--outdir", d, "--device", "cpu", "--max-iters", "5",
+              "--seed-stride", "3", "--opt-n-max", "128", "--warmstart-n", "64",
+              "--restarts", "1", "--ftol", "1e-2", "--optimizer", "lbfgs"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["cells"] > 0
+    with open(line["output"], "rb") as f:
+        res = pickle.load(f)
+    date = line["date"]
+    assert len(res) == 15
+    fitted = np.isfinite(res[f"{date}_interp"])
+    assert fitted.sum() == line["cells"]
+    for name in TD.HYPER_NAMES:  # fitted per cell, then smoothed: the fields differ
+        raw, smth = res[f"{date}_{name}"], res[f"{date}_{name}_smth"]
+        assert np.isfinite(raw[fitted]).all() and np.isfinite(smth[fitted]).all()
+        assert not np.allclose(raw[fitted], smth[fitted])
+    assert not np.allclose(res[f"{date}_interp"][fitted], res[f"{date}_interp_smth"][fitted])
 
 
 def test_port_never_imports_jax():

@@ -1,6 +1,6 @@
 """The port's copies of the numpy data plane give the JAX package's arrays.
 
-window / reader / synthetic / prior must agree exactly. The JAX package
+window / reader / synthetic / prior / regrid's nearest_fill must agree exactly. The JAX package
 gathers neighborhoods with its C++ grid hash where it is built, the port with
 SciPy's kd-tree: buckets, test inputs and cell order must agree exactly, and
 each row the same set of points (the order inside a row may differ).
@@ -13,11 +13,13 @@ import torch
 from optimalinterpolation_tpu.data import neighbors as JN
 from optimalinterpolation_tpu.data import prior as JP
 from optimalinterpolation_tpu.data import reader as JR
+from optimalinterpolation_tpu.data import regrid as JG
 from optimalinterpolation_tpu.data import synthetic as JS
 from optimalinterpolation_tpu.data import window as JW
 from optimalinterpolation_tpu_torch.data import neighbors as TN
 from optimalinterpolation_tpu_torch.data import prior as TP
 from optimalinterpolation_tpu_torch.data import reader as TR
+from optimalinterpolation_tpu_torch.data import regrid as TG
 from optimalinterpolation_tpu_torch.data import synthetic as TS
 from optimalinterpolation_tpu_torch.data import window as TW
 
@@ -80,3 +82,24 @@ def test_gather_neighborhoods_matches(seasons, buckets):
             pa = np.column_stack([ba.x[r, :k], ba.z[r, :k]])
             pb = np.column_stack([bb.x[r, :k], bb.z[r, :k]])
             np.testing.assert_array_equal(pb[np.lexsort(pb.T)], pa[np.lexsort(pa.T)])
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_nearest_fill_matches(masked):
+    rng = np.random.default_rng(5)
+    g = 30
+    x, y = np.meshgrid(np.arange(g) * 25e3, np.arange(g) * 25e3, indexing="ij")
+    field = rng.normal(size=(g, g))
+    field[rng.random((g, g)) < 0.6] = np.nan
+    valid = rng.random((g, g)) < 0.7 if masked else None
+    a = JG.nearest_fill(field, x, y, valid_mask=valid)
+    b = TG.nearest_fill(field, x, y, valid_mask=valid)
+    np.testing.assert_array_equal(b, a)
+    assert np.isfinite(b).sum() > np.isfinite(field).sum()
+    if masked:
+        assert np.isnan(b[~valid & np.isnan(field)]).all()
+    empty = np.full((g, g), np.nan)
+    np.testing.assert_array_equal(TG.nearest_fill(empty, x, y), JG.nearest_fill(empty, x, y))
+    # 1-D coordinate vectors are meshed as the JAX package meshes them
+    np.testing.assert_array_equal(TG.nearest_fill(field, x[:, 0], y[0]),
+                                  JG.nearest_fill(field, x[:, 0], y[0]))

@@ -81,3 +81,43 @@ def test_shape_fn_matches_pallas(kind):
     ref = pallas_gp._shape_fn(JK.Kernel(kind), jnp.asarray(d2))
     got = TK._shape_fn(TK.Kernel(kind), torch.from_numpy(d2))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-13, atol=0)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_dlogell_weight_matches_jax_and_the_derivative(kind):
+    """w(d2) against the JAX package's, zero distance included (the
+    Matern-1/2 guard), and against autograd: d k / d log ell_d = sf2 w dq_d^2."""
+    from optimalinterpolation_tpu.ops import pallas_gp
+
+    rng = np.random.default_rng(3)
+    d2 = np.abs(rng.normal(0.0, 2.0, (5, 9)))
+    d2[0, 0] = 0.0
+    ref = pallas_gp._dlogell_weight(JK.Kernel(kind), jnp.asarray(d2))
+    got = TK._dlogell_weight(TK.Kernel(kind), torch.from_numpy(d2))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-13, atol=0)
+    assert np.isfinite(got.numpy()).all()
+
+    x, _, ell, sf2, _ = _inputs(seed=4, b=1, n=6)
+    log_ell = torch.tensor(np.log(ell[0]), requires_grad=True)
+    xt = torch.from_numpy(x[0])
+    k = TK.kernel_matrix(xt, torch.exp(log_ell), torch.tensor(sf2[0]), kind=TK.Kernel(kind))
+    xs = xt / torch.exp(log_ell.detach())
+    dq2 = (xs[:, None, :] - xs[None, :, :]) ** 2
+    w = TK._dlogell_weight(TK.Kernel(kind), dq2.sum(-1))
+    for d in range(3):
+        (dk,) = torch.autograd.grad(k[1:, 0].sum(), log_ell, retain_graph=True)
+        expect = (sf2[0] * w * dq2[:, :, d])[1:, 0].sum()
+        torch.testing.assert_close(dk[d], expect, rtol=1e-10, atol=1e-14)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_kernel_matrix_autograd_form_equals_the_in_place_form(kind):
+    x, _, ell, sf2, mask = _inputs(seed=5)
+    args = [torch.from_numpy(a) for a in (x, ell, sf2)]
+    plain = TK.kernel_matrix(*args, kind=TK.Kernel(kind), mask=torch.from_numpy(mask))
+    args[1].requires_grad_()
+    diff = TK.kernel_matrix(*args, kind=TK.Kernel(kind), mask=torch.from_numpy(mask))
+    assert diff.requires_grad and not plain.requires_grad
+    torch.testing.assert_close(diff.detach(), plain, rtol=1e-14, atol=0)
+    (g,) = torch.autograd.grad(diff.sum(), args[1])
+    assert bool(torch.isfinite(g).all())  # sqrt's gradient at the zero diagonal is guarded
