@@ -6,11 +6,17 @@ CUDA card and ``nvcc``, imports nothing of JAX, and prints one JSON line per
 phase:
 
   1. device  torch sees a card; nvidia-smi's name and power limit; TF32 off.
-  2. build   K1, K2 and K3 compiled from csrc/ (seconds, ptxas register lines).
+  2. build   K1, K2 and K3 compiled from csrc/ (seconds, ptxas register lines;
+             0 spill bytes in each of the four kernels).
   3. K1      1,024 random SPD blocks plus one non-PD block, against the
-             float64 twin: |L L^T - D|_max <= 1e-5 |D|_max, logdet within
-             1e-4 relative, ok identical; kernel, float32-twin and library
-             times, also at 352 blocks (a launch of the 2048 bucket).
+             float64 twin: |L L^T - D|_max <= 1e-5 |D|_max, |W L - I|_max <=
+             1e-4, logdet within 1e-4 relative, ok identical; the day's
+             Matern-3/2 diagonal and Schur-complemented blocks at the larger
+             of those gates and 4 x the float32 twin's deviation, two
+             launches bit-equal; identity exact; bad pivots in panels 0 and
+             3 not ok; kernel, float32-twin and library times at 1, 132, 352
+             (a launch of the 2048 bucket) and 1,025 blocks, the kernel no
+             slower than the library at 352 and 1,025.
   4. K2      N = 512 and 1024, B = 64 (one cell with NaN hypers), against the
              float64 twin: |d mean|, |d std| <= 1e-4 m (the whole-flow float32
              tolerance of tests/test_reference_flow.py), lZ within 1e-4
@@ -123,11 +129,57 @@ def phase_build() -> None:
     secs = time.perf_counter() - t0
     log = lib.with_suffix(".log")
     ptxas = [ln.strip() for ln in log.read_text().splitlines()
-             if "registers" in ln or "spill" in ln] if log.exists() else []
+             if "entry function" in ln or "registers" in ln or "spill" in ln]
+    spills = [ln for ln in ptxas if "spill" in ln]
+    # K1, K2 and both K3 variants, each with 0 spill bytes
+    if len(spills) != 4 or any(", 0 bytes spill stores, 0 bytes spill loads" not in ln
+                               for ln in spills):
+        _fail(f"ptxas reports spills or not four kernels: {spills}")
     _phase("build", seconds=secs, library=str(lib.name), ptxas=ptxas)
 
 
-def phase_k1() -> dict:
+def _k1_errors(d, l, w, logdet, ref_logdet) -> dict:
+    """|L L^T - D|_max / |D|_max, |W L - I|_max and the largest logdet error
+    relative to max(|logdet|, 1), in float64 over the batch."""
+    dd, l64 = d.double(), l.double()
+    eye = torch.eye(128, dtype=torch.float64, device=d.device)
+    return {"recon_rel": ((l64 @ l64.mT - dd).abs().max() / dd.abs().max()).item(),
+            "w_l_minus_i": (w.double() @ l64 - eye).abs().max().item(),
+            "logdet_rel": ((logdet.double() - ref_logdet).abs()
+                           / ref_logdet.abs().clamp_min(1.0)).max().item()}
+
+
+def _matern_blocks(day) -> torch.Tensor:
+    """Diagonal 128-blocks of 16 real cells of the day's 2048 bucket,
+    Matern-3/2 at the slice's hypers (sn2 / sf2 = 0.17), jitter 1e-6, padding
+    rows identity, plus each cell's last diagonal block after 15 Schur
+    complement steps (the block the blocked Cholesky factors last), all
+    formed in float64 and rounded to float32."""
+    from optimalinterpolation_tpu_torch.ops import blocked_gp
+    from optimalinterpolation_tpu_torch.ops.kernels import Kernel
+
+    b = next(bb for bb in day.batches if bb.capacity == 2048)
+    rows = np.nonzero(b.cell_index >= 0)[0][:16]
+    x, m = (torch.from_numpy(a[rows]).double().cuda() for a in (b.x, b.mask))
+    h = torch.log(torch.tensor([2e5, 2e5, 2.0, 0.03, 0.005], dtype=torch.float64,
+                               device="cuda")).expand(len(rows), 5)
+    a, _ = blocked_gp._build_a(h, x, m, Kernel.MATERN32, 1e-6)
+    ab = blocked_gp._to_blocks(a, 128)
+    diag = ab.diagonal(dim1=1, dim2=2).permute(0, 3, 1, 2).reshape(-1, 128, 128)
+    lk = torch.linalg.cholesky(a)[:, -128:, -128:]
+    return torch.cat([diag, lk @ lk.mT]).float().contiguous()
+
+
+def phase_k1(day) -> dict:
+    """K1 against its float64 twin on two block sets: random SPD blocks
+    (gates: |L L^T - D|_max <= 1e-5 |D|_max, |W L - I|_max <=
+    1e-4, logdet within 1e-4 relative) and the day's Matern blocks (each gate
+    the larger of those and 4 x the float32 twin's own deviation on the same
+    blocks, as K3's gradient gate); ok flags identical; an identity block
+    exactly L = W = I, logdet 0; non-PD blocks with bad pivots in panel 0
+    and 3, or in 3 alone, not ok; two launches bit-equal. Times at 1 block
+    (the latency K2 and K3 pay per diagonal step), 132 (one block per SM),
+    352 (a launch of the 2048 bucket) and 1,025."""
     from optimalinterpolation_tpu_torch.ops import blocked_gp
 
     rng = np.random.default_rng(0)
@@ -146,39 +198,73 @@ def phase_k1() -> dict:
     if bool(ok[-1]) or not bool(ok[:-1].all()):
         _fail("K1 ok flags wrong: the SPD blocks must pass and the non-PD block fail")
     good = ok
-    dd = d.double()[good]
-    l64 = l.double()[good]
-    recon = (l64 @ l64.mT - dd).abs().max().item() / dd.abs().max().item()
-    eye = torch.eye(128, dtype=torch.float64, device="cuda")
-    inv = (w.double()[good] @ l64 - eye).abs().max().item()
-    ld_rel = ((logdet.double() - logdet_t)[good].abs() / logdet_t[good].abs()).max().item()
-    l_err = (l64 - lt[good]).abs().max().item()
-    if not recon <= 1e-5:
-        _fail(f"K1 |L L^T - D|_max / |D|_max = {recon} > 1e-5")
-    if not inv <= 1e-4:
-        _fail(f"K1 |W L - I|_max = {inv} > 1e-4")
-    if not ld_rel <= 1e-4:
-        _fail(f"K1 logdet relative error {ld_rel} > 1e-4")
+    err = _k1_errors(d[good], l[good], w[good], logdet[good], logdet_t[good])
+    l_err = (l.double()[good] - lt[good]).abs().max().item()
+    gates = {"recon_rel": 1e-5, "w_l_minus_i": 1e-4, "logdet_rel": 1e-4}
+    for k, tol in gates.items():
+        if not err[k] <= tol:
+            _fail(f"K1 random SPD: {k} = {err[k]} > {tol}")
+
+    # the day's Matern blocks, against the float64 and the float32 twin
+    dm = _matern_blocks(day)
+    out = blocked_gp._factor_invert(dm)
+    again = blocked_gp._factor_invert(dm)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        _fail("K1: two launches on the same blocks differ")
+    ref = blocked_gp._factor_invert_plain(dm.double())
+    twin = blocked_gp._factor_invert_plain(dm)
+    if not (bool(out[3].all()) and bool(ref[3].all()) and bool(twin[3].all())):
+        _fail("K1 Matern blocks: not every block factored")
+    m_err = _k1_errors(dm, out[0], out[1], out[2], ref[2])
+    m_twin = _k1_errors(dm, twin[0], twin[1], twin[2], ref[2])
+    m_tol = {k: max(tol, 4.0 * m_twin[k]) for k, tol in gates.items()}
+    for k, tol in m_tol.items():
+        if not m_err[k] <= tol:
+            _fail(f"K1 Matern blocks: {k} = {m_err[k]} > {tol}")
+    m_l_err = (out[0].double() - ref[0]).abs().max().item()
+
+    # identity, and non-PD blocks with bad pivots in panel 0 and 3 / 3 alone
+    eye32 = torch.eye(128, dtype=torch.float32, device="cuda")
+    le, we, lde, oke = blocked_gp._factor_invert(eye32[None].contiguous())
+    if not (torch.equal(le[0], eye32) and torch.equal(we[0], eye32) and lde[0] == 0
+            and bool(oke[0])):
+        _fail("K1: the identity block does not give L = W = I, logdet 0 exactly")
+    bad = d[:2].clone()
+    bad[0, 5, 5] = -1.0
+    bad[0, 100, 100] = -50.0
+    bad[1, 100, 100] = -50.0
+    ok_bad = blocked_gp._factor_invert(bad)[3]
+    if bool(ok_bad.any()) or bool(blocked_gp._factor_invert_plain(bad.double())[3].any()):
+        _fail(f"K1: blocks with non-positive pivots in panels 0 and 3 pass: {ok_bad.tolist()}")
+
     def library(blocks):
         # one PyTorch call pair for the same function; the port never calls
         # it on a CUDA tensor
         l_, _ = torch.linalg.cholesky_ex(blocks)
         return torch.linalg.solve_triangular(l_, eye32.expand_as(l_), upper=False)
 
-    eye32 = torch.eye(128, dtype=torch.float32, device="cuda")
     times = {}
-    for nblk in (1025, 352):  # 352: one launch of the 2048 bucket's tiles
+    for nblk in (1025, 352, 132, 1):  # 352: one launch of the 2048 bucket's tiles
         dd_ = d[:nblk]
+        reps = 20 if nblk > 132 else 200
         times[nblk] = {
-            "ms": _ms(lambda: blocked_gp._factor_invert(dd_), 20),
-            "plain_ms": _ms(lambda: blocked_gp._factor_invert_plain(dd_), 20),
-            "library_ms": _ms(lambda: library(dd_), 20),
+            "ms": _ms(lambda: blocked_gp._factor_invert(dd_), reps),
+            "plain_ms": _ms(lambda: blocked_gp._factor_invert_plain(dd_), reps),
+            "library_ms": _ms(lambda: library(dd_), reps),
             # d read, L and W written; factor and inverse 128^3 / 3 FLOP each
             **_bound(nblk * (3 * 128 * 128 * 4 + 5), nblk * 2 * 128 ** 3 / 3),
         }
-    _phase("K1", blocks=int(d.shape[0]), recon_rel=recon, w_l_minus_i=inv, logdet_rel=ld_rel,
-           max_abs_err_l=l_err, times={str(k): v for k, v in times.items()})
-    return {"shape": "352 blocks of 128x128", "max_abs_err": l_err, **times[352]}
+    for nblk in (1025, 352):
+        if not times[nblk]["ms"] <= times[nblk]["library_ms"]:
+            _fail(f"K1 at {nblk} blocks: {times[nblk]['ms']} ms, slower than the "
+                  f"library pair's {times[nblk]['library_ms']} ms")
+    _phase("K1", blocks=int(d.shape[0]), **err, max_abs_err_l=l_err,
+           matern_blocks=int(dm.shape[0]), matern=m_err, matern_twin32=m_twin,
+           matern_tol=m_tol, matern_max_abs_err_l=m_l_err,
+           times={str(k): v for k, v in times.items()})
+    return {"shape": "352 blocks of 128x128", "max_abs_err": max(l_err, m_l_err),
+            **times[352], "times_by_blocks": {str(k): v for k, v in times.items()}}
 
 
 def _k2_problem(rng, b: int, n: int):
@@ -597,14 +683,14 @@ def main() -> int:
 
     phase_device()
     phase_build()
-    k1 = phase_k1()
-    k2 = phase_k2()
-    k3 = phase_k3()
     with tempfile.TemporaryDirectory() as tmp:
         # bench.py's synthetic season: seed 7, tracks (10, 3, 8, 8), noise 0.1
         make_synthetic_season(tmp, grid_res_km=RES_KM, n_days=N_DAYS, seed=7,
                               tracks_per_day=(10, 3, 8, 8), noise_std=0.1)
         day = _Day(tmp)
+        k1 = phase_k1(day)
+        k2 = phase_k2()
+        k3 = phase_k3()
         quick = phase_slice(tmp, day)
         fit = phase_fit(tmp, day)
 

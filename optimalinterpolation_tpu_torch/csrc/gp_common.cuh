@@ -176,8 +176,6 @@ __device__ inline void blocked_cholesky(float* A, float* Wg, float* sd,
   for (int kb = 0; kb < nb; ++kb) {
     const int k0 = kb * BLK;
     load_block(sd, A, k0, k0, n);
-    for (int e = tid; e < BLK * BLK; e += nt)
-      sw[(e / BLK) * LDS + e % BLK] = (e / BLK == e % BLK) ? 1.f : 0.f;
     __syncthreads();
     float ld;
     bool okk;

@@ -5,22 +5,27 @@
 // symmetric blocks (B, 128, 128) f32. Output: L (lower, zeros above), W = L^-1,
 // logdet (B,), ok (B,) bool.
 //
-// Bound on this card: one block is 128 sequential pivot steps with a barrier
-// each; the arithmetic (~128^3/3 FMAs) is small next to that latency chain.
-// Design: one CTA per block, both 64 KB operands in dynamic shared memory for
-// the whole factorization (so the kernel reads each block once and writes L
-// and W once), the factorization itself in factor_invert.cuh. The TPU
-// kernel's padding of B to a multiple of 8 (its (8, 128) tiling) is not
-// carried over.
+// Bound on this card: latency. One block is ~2 x 128^3 / 3 FMAs, small next
+// to the sequential pivot chain. Design: one CTA per block, both 66 KB
+// operands (d and W, row stride 129) in dynamic shared memory for the whole
+// factorization, so the kernel reads each block once and writes L and W
+// once; the factorization itself is factor_invert.cuh (32-wide warp panels,
+// 11 CTA barriers). 512 threads, not 1024: the warp that factors a diagonal
+// 32x32 block keeps a row of A and of W in registers (64 floats a lane),
+// which needs up to 128 registers a thread, and 1024 threads would allow 64.
+// One CTA per SM: the two operands take 132 KB of the SM's 228 KB, so a
+// second CTA would need W packed into the upper triangle that the routine
+// uses as scratch; not done. The TPU kernel's padding of B to a multiple of 8
+// (its (8, 128) tiling) is not carried over.
 #include <cuda_runtime.h>
 
 #include "factor_invert.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;  // 32 warps: the pivot chain is latency-bound
+constexpr int kThreads = 512;  // 16 warps; see the note above
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     k1_factor_invert_kernel(const float* __restrict__ d, float* __restrict__ l,
                             float* __restrict__ w, float* __restrict__ logdet,
                             bool* __restrict__ ok) {
@@ -34,7 +39,6 @@ __global__ void __launch_bounds__(kThreads)
     const int r = e / BLK;
     const int c = e % BLK;
     sd[r * LDS + c] = d[base + e];
-    sw[r * LDS + c] = (r == c) ? 1.f : 0.f;
   }
   __syncthreads();
   float ld;

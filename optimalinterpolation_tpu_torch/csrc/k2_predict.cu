@@ -23,8 +23,8 @@
 // live in caller-allocated device-memory scratch ((B, N, N) and (B, N, 128));
 // each 128x128 tile product stages its two operands in shared memory and
 // keeps a 4x8 register tile per thread, so the kernel is bound by
-// shared-memory bandwidth of the tile products and, at N = 512, by the
-// sequential pivot chain of the diagonal blocks. One CTA per cell, no
+// shared-memory bandwidth of the tile products; each diagonal block adds the
+// latency of factor_invert.cuh (32-wide warp panels). One CTA per cell, no
 // tensor cores: wgmma, TMA and several CTAs per cell are later work.
 #include <cuda_runtime.h>
 

@@ -50,6 +50,80 @@ def test_k1_matches_twin(card):
     assert bool((l.triu(1) == 0).all())
 
 
+def _k1_padded(rng):
+    d = _spd_blocks(rng, 2)[:1]
+    m = (rng.random(128) < 0.7).astype(np.float64)
+    return d * m[:, None] * m[None] + np.diag(1.0 - m)
+
+
+def _k1_bad(rng, pivots):
+    d = _spd_blocks(rng, 2)[:1]
+    for i, v in pivots:
+        d[0, i, i] = v
+    return d
+
+
+# block -> expected ok; panels of the factor are 32 columns wide
+_K1_EDGE = {
+    "identity": (lambda rng: np.eye(128)[None], True),
+    "padded": (_k1_padded, True),
+    "bad_panels_0_and_3": (lambda rng: _k1_bad(rng, [(5, -1.0), (100, -50.0)]), False),
+    "bad_panel_3": (lambda rng: _k1_bad(rng, [(100, -50.0)]), False),
+    "nan": (lambda rng: _k1_bad(rng, [(40, np.nan)]), False),
+}
+
+
+@pytest.mark.parametrize("case", list(_K1_EDGE))
+def test_k1_edge_blocks(card, case):
+    make, want_ok = _K1_EDGE[case]
+    d = torch.tensor(make(np.random.default_rng(5)), dtype=torch.float32, device=card)
+    l, w, logdet, ok = blocked_gp._factor_invert(d)
+    assert bool(ok[0]) is want_ok
+    assert bool(blocked_gp._factor_invert_plain(d.double())[3][0]) is want_ok
+    if case == "identity":  # L = W = I and logdet 0, exactly
+        eye = torch.eye(128, device=card)
+        assert torch.equal(l[0], eye) and torch.equal(w[0], eye) and logdet[0] == 0
+    if case == "padded":  # identity rows and columns stay exactly identity
+        pad = d[0].diagonal() == 1.0
+        assert bool((l[0][pad][:, pad] == torch.eye(int(pad.sum()), device=card)).all())
+        lt, wt, ldt, _ = blocked_gp._factor_invert_plain(d.double())
+        torch.testing.assert_close(l.double(), lt, atol=1e-5, rtol=0)
+        torch.testing.assert_close(logdet.double(), ldt, rtol=1e-5, atol=0)
+    if case == "nan":
+        assert torch.isnan(logdet[0])
+
+
+def _matern_blocks(rng, b, noise):
+    """Matern-3/2 blocks (sf2 = 1) at the synthetic season's scales, noise =
+    sn2 / sf2, jitter 1e-6; with noise 0 the condition number reaches ~1e5."""
+    x = rng.uniform(-3e5, 3e5, (b, 128, 2)) / 2e5
+    r = np.sqrt(3.0 * ((x[:, :, None] - x[:, None]) ** 2).sum(-1))
+    return (1.0 + r) * np.exp(-r) + (noise + 1e-6) * np.eye(128)
+
+
+@pytest.mark.parametrize("noise", [0.17, 0.0])
+def test_k1_matern_blocks_against_float64(card, noise):
+    """|L L^T - D|, |W L - I| and logdet within the larger of the random-SPD
+    gates and 4 x the float32 twin's own deviation; two launches bit-equal."""
+    d = torch.tensor(_matern_blocks(np.random.default_rng(6), 8, noise),
+                     dtype=torch.float32, device=card)
+    got = blocked_gp._factor_invert(d)
+    assert all(torch.equal(a, b) for a, b in zip(got, blocked_gp._factor_invert(d)))
+    ref_ld = blocked_gp._factor_invert_plain(d.double())[2]
+    twin = blocked_gp._factor_invert_plain(d)
+    assert bool(got[3].all()) and bool(twin[3].all())
+    eye = torch.eye(128, dtype=torch.float64, device=card)
+
+    def errors(l, w, logdet):
+        l64 = l.double()
+        return ((l64 @ l64.mT - d.double()).abs().max().item() / d.abs().max().item(),
+                (w.double() @ l64 - eye).abs().max().item(),
+                ((logdet.double() - ref_ld).abs() / ref_ld.abs().clamp_min(1.0)).max().item())
+
+    for e, e32, gate in zip(errors(*got[:3]), errors(*twin[:3]), (1e-5, 1e-4, 1e-4)):
+        assert e <= max(gate, 4.0 * e32)
+
+
 @pytest.mark.parametrize("kind", list(Kernel))
 @pytest.mark.parametrize("n", [128, 384])
 def test_k2_matches_twin(card, kind, n):
