@@ -7,7 +7,9 @@ phase:
 
   1. device  torch sees a card; nvidia-smi's name and power limit; TF32 off.
   2. build   K1, K2 and K3 compiled from csrc/ (seconds, ptxas register lines;
-             0 spill bytes in each of the four kernels).
+             0 spill bytes in each of the four kernels; HMMA tensor-core
+             instructions in the SASS of K2 and both K3 variants, counted by
+             cuobjdump).
   3. K1      1,024 random SPD blocks plus one non-PD block, against the
              float64 twin: |L L^T - D|_max <= 1e-5 |D|_max, |W L - I|_max <=
              1e-4, logdet within 1e-4 relative, ok identical; the day's
@@ -25,7 +27,9 @@ phase:
              and 1024, B = 132 (one cell per SM; masked rows, differing
              hypers, one all-padding row, one NaN row) against the float64
              twin: value within 1e-5 relative, gradient within
-             max(1e-3 |g|_inf, 4 x the float32 twin's own deviation).
+             max(1e-3 |g|_inf, 4 x the float32 twin's own deviation); at
+             N = 1024 the value of 1 and 8 rows (a line-search launch),
+             bit-equal to those rows of the 132-row launch, with times.
   6. slice   the quicklook day through ``cli.main(["daily", ..., "--hypers",
              H])`` on a synthetic 25 km season (320 x 320 grid, 300 km / 9-day
              window, buckets 512-4096): 15 keys, every active cell finite, K1
@@ -41,7 +45,7 @@ phase:
              smoothed hypers, and the float64 NLL at the fitted hypers
              against what a float64 fit reaches from there (median <= 0.05
              nats, mean <= 0.7; K3's fit against the float32 twin's from one
-             start, p95 <= 0.05).
+             start, p95 <= 0.05); a histogram of rows per K3 value launch.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -55,6 +59,8 @@ import io
 import json
 import logging
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -87,20 +93,30 @@ def _ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-# NVIDIA's data sheet for the H100 SXM: float32 outside the tensor cores (TF32
-# is ruled out in Cholesky chains) and device-memory rate.
+# NVIDIA's data sheet for the H100 SXM: float32 outside the tensor cores, TF32
+# on them (dense), and the device-memory rate. One TF32 product is ruled out
+# in Cholesky chains; the 3xTF32 split does three.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
-def _bound(n_bytes: float, flops: float) -> dict:
+def _bound(n_bytes: float, flops: float, tf32x3: bool = False) -> dict:
     """The least milliseconds the card could take: the bytes the function
     must move (inputs read once, outputs written once) over the memory rate,
-    or its operations over the float32 peak, whichever is larger."""
+    or its operations over the peak of the route, whichever is larger. With
+    ``tf32x3`` the operations may also take the 3xTF32 route (three products
+    at the TF32 peak), and the faster route counts; the float32 (SIMT) figure
+    stays beside it as ``bound_simt_ms``."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    t_simt = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = min(t_simt, 3 * flops / PEAK_TF32_FLOPS * 1e3) if tf32x3 else t_simt
+    out = {"bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if tf32x3:
+        out.update(bound_simt_ms=max(t_bytes, t_simt),
+                   bound_route="3xTF32" if t_ops < t_simt else "float32")
+    return out
 
 
 def phase_device() -> str:
@@ -135,7 +151,30 @@ def phase_build() -> None:
     if len(spills) != 4 or any(", 0 bytes spill stores, 0 bytes spill loads" not in ln
                                for ln in spills):
         _fail(f"ptxas reports spills or not four kernels: {spills}")
-    _phase("build", seconds=secs, library=str(lib.name), ptxas=ptxas)
+    hmma = _hmma_counts(lib)
+    if len(hmma) != 4 or any(hmma[k] == 0 for k in ("K2", "K3 value", "K3 grad")):
+        _fail(f"K2 and both K3 variants must run their tile products on the tensor cores: "
+              f"HMMA lines {hmma}")
+    _phase("build", seconds=secs, library=str(lib.name), ptxas=ptxas, hmma_lines=hmma)
+
+
+def _hmma_counts(lib) -> dict:
+    """Tensor-core (HMMA) instructions in each kernel's SASS, by
+    ``cuobjdump -sass`` on the built library."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    names = {"k1_factor_invert_kernel": "K1", "k2_predict_kernel": "K2",
+             "k3_nll_kernelILb0": "K3 value", "k3_nll_kernelILb1": "K3 grad"}
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = next((v for k, v in names.items() if k in m.group(1)), m.group(1))
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def _k1_errors(d, l, w, logdet, ref_logdet) -> dict:
@@ -319,7 +358,7 @@ def phase_k2() -> dict:
         # the N = 1024 times are kept; inputs and the (B, 5) output against
         # N^3 / 3 FLOP of Cholesky per cell
         report.update(shape=f"N={n}, 64 cells", ms=ms, plain_ms=plain_ms, library_ms=None,
-                      **_bound(64 * (5 * n + 14) * 4, 64 * n ** 3 / 3))
+                      **_bound(64 * (5 * n + 14) * 4, 64 * n ** 3 / 3, tf32x3=True))
     return report
 
 
@@ -381,7 +420,7 @@ def phase_k3() -> dict:
         line = dict(n=n, kind=kind.value, cells=b, d_value_rel=dv, twin32_d_value_rel=tv,
                     d_grad=dg, twin32_d_grad=tg, grad_inf_norm=gmax, grad_tol=tol)
         if kind is Kernel.MATERN32:
-            reps = 10 if n < 1024 else 5
+            reps = 40 if n == 128 else 10 if n < 1024 else 5
             line.update(
                 value_ms=_ms(lambda: fused_gp.gp_nll(*args, **kw), reps),
                 ms=_ms(lambda: fused_gp.gp_nll_and_grad(*args, **kw), reps),
@@ -394,9 +433,29 @@ def phase_k3() -> dict:
             report = dict(shape=f"N={n}, {b} cells, value + gradient", max_abs_err=dg,
                           value_rel_err=dv, ms=line["ms"], plain_ms=line["plain_ms"],
                           value_ms=line["value_ms"], library_ms=None,
-                          **_bound(b * (5 * n + 11) * 4, b * float(n) ** 3))
+                          **_bound(b * (5 * n + 11) * 4, b * float(n) ** 3, tf32x3=True))
+        if n == 1024:
+            report["value_ms_by_rows"] = _k3_few_rows(args, kw, value, line["value_ms"])
         _phase("K3", **line)
     return report
+
+
+def _k3_few_rows(args, kw, value, wave_ms) -> dict:
+    """K3 value launches of 1 and 8 rows at N = 1024, the late line-search
+    steps: each row bit-equal to the same row of the 132-row launch (a row's
+    result does not depend on the rows beside it), and their times beside
+    the full wave's."""
+    from optimalinterpolation_tpu_torch.ops import fused_gp
+
+    times = {"132": wave_ms}
+    for rows in (1, 8):
+        sub = [a[:rows].contiguous() for a in args]
+        got = fused_gp.gp_nll(*sub, **kw)
+        if not torch.equal(got, value[:rows]):
+            _fail(f"K3 N=1024: a {rows}-row launch differs from those rows of the full launch")
+        times[str(rows)] = _ms(lambda: fused_gp.gp_nll(*sub, **kw), 20)
+    _phase("K3_rows", n=1024, value_ms_by_rows=times)
+    return times
 
 
 class _DailyLog(logging.Handler):
@@ -438,6 +497,7 @@ def _run_daily(tmp: str, extra_argv: list):
                "K3 value": fused_gp.gp_nll, "K3 grad": fused_gp.gp_nll_and_grad}
     for fn in counted.values():
         fn.launches = 0
+    fused_gp.gp_nll.rows.clear()
     optimizer._lbfgs_segment.host_syncs = 0
     out = io.StringIO()
     t0 = time.perf_counter()
@@ -633,6 +693,19 @@ def _check_optimum(day: _Day, res, date) -> dict:
     return out
 
 
+def _rows_histogram() -> dict:
+    """K3 value launches of the last daily run by rows per launch, in bins."""
+    from optimalinterpolation_tpu_torch.ops import fused_gp
+
+    bins = [(1, 1), (2, 8), (9, 32), (33, 128), (129, 512), (513, 1 << 30)]
+    rows = fused_gp.gp_nll.rows
+    hist = {f"{lo}-{hi}" if hi < 1 << 30 else f">{lo - 1}":
+            sum(c for r, c in rows.items() if lo <= r <= hi) for lo, hi in bins}
+    hist["launches"] = sum(rows.values())
+    hist["rows"] = sum(r * c for r, c in rows.items())
+    return hist
+
+
 def phase_fit(tmp: str, day: _Day) -> dict:
     torch.cuda.reset_peak_memory_stats()
     res, date, launches, syncs, day_s, handler = _run_daily(tmp, [])
@@ -655,7 +728,7 @@ def phase_fit(tmp: str, day: _Day) -> dict:
            host_syncs=syncs, launches=launches,
            rmse_vs_truth_m=day.rmse(res[f"{date}_interp_smth"]),
            rmse_pass1_vs_truth_m=day.rmse(res[f"{date}_interp"]),
-           peak_mem_gb=peak, stages=stages)
+           peak_mem_gb=peak, stages=stages, k3_value_rows=_rows_histogram())
     day.check_finite(res, date, [k[len(date) + 1:] for k in res])
     if min(launches.values()) == 0:
         _fail(f"the two-pass day did not launch every kernel: {launches}")

@@ -7,7 +7,7 @@
 //   2. a right-looking blocked Cholesky A = L L^T: the 128x128 diagonal block
 //      in shared memory through factor_invert.cuh (giving W_kk = L_kk^-1),
 //      the panel L_ik = A_ik W_kk^T and the trailing update
-//      A_ij -= L_ik L_jk^T as SIMT tiles out of shared memory;
+//      A_ij -= L_ik L_jk^T in 3xTF32 on the tensor cores;
 //   3. one forward sweep for z = L^-1 (y - mean) m and v = L^-1 k*, with k*
 //      built from xstar;
 //   4. mean = mean + z.v, std = sqrt(max(sf2 - |v|^2, 0)),
@@ -21,11 +21,11 @@
 // N = 1024, far above the 227 KB of shared memory a CTA may hold, so the
 // TPU's whole-cell-in-VMEM design does not carry over. A and the W_kk blocks
 // live in caller-allocated device-memory scratch ((B, N, N) and (B, N, 128));
-// each 128x128 tile product stages its two operands in shared memory and
-// keeps a 4x8 register tile per thread, so the kernel is bound by
-// shared-memory bandwidth of the tile products; each diagonal block adds the
-// latency of factor_invert.cuh (32-wide warp panels). One CTA per cell, no
-// tensor cores: wgmma, TMA and several CTAs per cell are later work.
+// the Cholesky's tile products run through gp_common.cuh's tile engine
+// (3xTF32 mma.sync on the tensor cores, operands streamed by cp.async in
+// double-buffered k-slices), and each diagonal block adds the latency of
+// factor_invert.cuh (32-wide warp panels). One CTA per cell: several CTAs per
+// cell (a thread-block cluster), wgmma and TMA are later work.
 #include <cuda_runtime.h>
 
 #include "gp_common.cuh"
@@ -33,7 +33,6 @@
 namespace {
 
 using oi::BLK;
-using oi::LDS;
 using oi::kLog2Pi;
 using oi::kThreads;
 using oi::shape_fn;
@@ -47,35 +46,42 @@ __global__ void __launch_bounds__(kThreads, 1)
                       const float* __restrict__ mean, float* __restrict__ a_scr,
                       float* __restrict__ w_scr, float* __restrict__ out,
                       int n, int kind, float jitter) {
-  extern __shared__ float smem[];
-  float* sd = smem;            // BLK x LDS: diagonal block, then tile operand
-  float* sw = sd + BLK * LDS;  // BLK x LDS: W_kk, then tile operand
-  float* q = sw + BLK * LDS;   // 4 n: x/ell_x, y/ell_y, t/ell_t, mask
+  extern __shared__ __align__(16) float smem[];
+  float* sd = smem;  // the tile engine's stage, then block right-hand sides
+  // 4 n: x/ell_x, y/ell_y, t/ell_t, mask
+  float* q = smem + oi::stage_floats(n);
   float* zv = q + 4 * n;       // 2 n: right-hand sides, then z and v
   float* red = zv + 2 * n;     // 4 per warp: block reduction
 
+  const int cell = blockIdx.x;
+  const int nb = n / BLK;
+
+  // ---- 0.-2. scaled coordinates, lower block triangle of A, Cholesky ------
+  float logdet;
+  bool ok;
+  {
+    float* A = a_scr + static_cast<size_t>(cell) * n * n;
+    const oi::Hypers hyp = oi::load_hypers(log_hypers + cell * 5);
+    oi::load_scaled_coords(q, x, mask, cell, n, hyp);
+    oi::build_cov_lower(A, q, n, kind, hyp, jitter);
+    oi::blocked_cholesky(A, w_scr + static_cast<size_t>(cell) * n * BLK, smem,
+                         n, logdet, ok);
+  }
+  // pointers and hypers formed again rather than kept live (and spilled)
+  // across the Cholesky
+  const float* A = oi::opaque(a_scr) + static_cast<size_t>(cell) * n * n;
+  const float* Wg = oi::opaque(w_scr) + static_cast<size_t>(cell) * n * BLK;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
   const int nwarps = nt / 32;
-  const int cell = blockIdx.x;
-  const int nb = n / BLK;
-  float* A = a_scr + static_cast<size_t>(cell) * n * n;
-  float* Wg = w_scr + static_cast<size_t>(cell) * n * BLK;
-  const oi::Hypers hyp = oi::load_hypers(log_hypers + cell * 5);
+  const oi::Hypers hyp = oi::load_hypers(oi::opaque(log_hypers) + cell * 5);
   const float inv_ell0 = hyp.inv_ell0;
   const float inv_ell1 = hyp.inv_ell1;
   const float inv_ell2 = hyp.inv_ell2;
   const float sf2 = hyp.sf2;
   const float mu = mean[cell];
-
-  // ---- 0.-2. scaled coordinates, lower block triangle of A, Cholesky ------
-  oi::load_scaled_coords(q, x, mask, cell, n, hyp);
-  oi::build_cov_lower(A, q, n, kind, hyp, jitter);
-  float logdet;
-  bool ok;
-  oi::blocked_cholesky(A, Wg, sd, sw, n, logdet, ok);
 
   // ---- 3. dual forward solve: z = L^-1 ym, v = L^-1 k* --------------------
   const float xs0 = xstar[cell * 3] * inv_ell0;
@@ -188,7 +194,7 @@ extern "C" int oi_k2_predict(const float* log_hypers, const float* x,
   if (n % BLK != 0 || n < BLK || n > 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = static_cast<int>(sizeof(float)) *
-                   (2 * BLK * LDS + 6 * n + 4 * (kThreads / 32));
+                   (oi::stage_floats(n) + 6 * n + 4 * (kThreads / 32));
   err = cudaFuncSetAttribute(k2_predict_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -24,17 +24,23 @@
 //
 // Bound on this card: operations. A cell is 4 MB at N = 1024 and the TPU
 // kernel keeps A and T (2 x 4 MB) in VMEM, vectorised over a tile of cells; a
-// CTA here holds 227 KB. As in K2, a cell is one CTA, A, U and the W blocks
-// live in caller-allocated device-memory scratch ((B, N, N) twice and
-// (B, N, 128); the value variant has no U), and every 128x128 tile product
-// stages two operands in shared memory with a 4x8 register tile per thread.
-// Storing U = L^-T instead of T = L^-1 makes every product of steps 4 and 5 an
-// "a b^T" of two plainly loaded tiles. The gradient variant does about three
-// times the tile products of the value variant (nb = N/128: nb^3/6 each for
-// the Cholesky, U and Q). The five sums are reduced in a fixed order
-// (per-thread accumulators, warp shuffles, then shared memory in warp order):
-// no atomics, so equal inputs give equal bits on every launch. All arithmetic
-// is float32 FMA. No batch padding: one CTA per row of the batch.
+// CTA here holds 227 KB. As in K2, a cell is one CTA, and A, U and the W
+// blocks live in caller-allocated device-memory scratch ((B, N, N) twice and
+// (B, N, 128); the value variant has no U). Every 128x128 tile product (the
+// Cholesky's panel and trailing update, step 4's U_jk L_ik^T and S W_i^T,
+// step 5's U_ik U_jk^T) runs through gp_common.cuh's tile engine: 3xTF32
+// mma.sync on the tensor cores, operands streamed by cp.async in
+// double-buffered k-slices. Storing U = L^-T instead of T = L^-1 makes every
+// product of steps 4 and 5 an "a b^T" of two row-major tiles. The gradient
+// variant does about three times the tile products of the value variant
+// (nb = N/128: nb^3/6 each for the Cholesky, U and Q). Step 5 reads the
+// accumulators where mma leaves them; the kernel derivatives and the five
+// sums stay float32 FMA, reduced in a fixed order (per-thread accumulators,
+// warp shuffles, then shared memory in warp order): no atomics, so equal
+// inputs give equal bits on every launch, and the value variant runs the
+// same Cholesky as the gradient variant, so their values are equal. No batch
+// padding: one CTA per row of the batch, so a row's result does not depend
+// on which rows share the launch.
 #include <cuda_runtime.h>
 
 #include "gp_common.cuh"
@@ -42,7 +48,6 @@
 namespace {
 
 using oi::BLK;
-using oi::LDS;
 using oi::kLog2Pi;
 using oi::kThreads;
 using oi::warp_sum;
@@ -93,10 +98,12 @@ __global__ void __launch_bounds__(kThreads, 1)
                   float* __restrict__ u_scr, float* __restrict__ w_scr,
                   float* __restrict__ nll_out, float* __restrict__ grad_out,
                   int n, int kind, float jitter) {
-  extern __shared__ float smem[];
-  float* sd = smem;            // BLK x LDS: diagonal block, then tile operand
-  float* sw = sd + BLK * LDS;  // BLK x LDS: W_kk, then tile operand
-  float* q = sw + BLK * LDS;   // 4 n: x/ell_x, y/ell_y, t/ell_t, mask
+  extern __shared__ __align__(16) float smem[];
+  float* R = smem;  // the tile engine's resident tile, then its ring
+  float* ring = smem + oi::kTileFloats;
+  float* sd = R;                      // block right-hand sides (steps 2-3)
+  // 4 n: x/ell_x, y/ell_y, t/ell_t, mask
+  float* q = smem + oi::stage_floats(n);
   float* z = q + 4 * n;        // n: y m, then z
   float* al = z + n;           // n: alpha
   float* red = al + n;         // 8 per warp: block reductions
@@ -109,15 +116,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int nb = n / BLK;
   float* A = a_scr + static_cast<size_t>(cell) * n * n;
   float* Wg = w_scr + static_cast<size_t>(cell) * n * BLK;
-  const oi::Hypers hyp = oi::load_hypers(log_hypers + cell * 5);
   const float nanv = __int_as_float(0x7fc00000);
 
   // ---- 1. scaled coordinates, lower block triangle of A, Cholesky ---------
-  oi::load_scaled_coords(q, x, mask, cell, n, hyp);
-  oi::build_cov_lower(A, q, n, kind, hyp, jitter);
   float logdet;
   bool ok;
-  oi::blocked_cholesky(A, Wg, sd, sw, n, logdet, ok);
+  {
+    const oi::Hypers hyp = oi::load_hypers(log_hypers + cell * 5);
+    oi::load_scaled_coords(q, x, mask, cell, n, hyp);
+    oi::build_cov_lower(A, q, n, kind, hyp, jitter);
+  }
+  oi::blocked_cholesky(A, Wg, smem, n, logdet, ok);
 
   // ---- 2. z = L^-1 (y m) --------------------------------------------------
   for (int i = tid; i < n; i += nt)
@@ -207,92 +216,106 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   // ---- 4. U = L^-T, one block row at a time -------------------------------
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  float acc[4][8];
   for (int jb = 0; jb < nb; ++jb) {
     const int j0 = jb * BLK;
+    float* urow = U + j0 * n;
     for (int e = tid; e < BLK * BLK; e += nt) {
       const int r = e / BLK;
       const int c = e % BLK;
-      U[static_cast<size_t>(j0 + r) * n + j0 + c] =
-          Wg[static_cast<size_t>(j0 + c) * BLK + r];
+      urow[r * n + j0 + c] = Wg[(j0 + c) * BLK + r];
     }
-    __syncthreads();
     for (int ib = jb + 1; ib < nb; ++ib) {
-      const int i0 = ib * BLK;
-      oi::tile_zero(acc);
-      for (int kb = jb; kb < ib; ++kb) {
-        oi::load_block(sd, U, j0, kb * BLK, n);
-        oi::load_block(sw, A, i0, kb * BLK, n);
-        __syncthreads();
-        oi::tile_abt_acc(sd, sw, acc);  // += U_jk L_ik^T
-        __syncthreads();
-      }
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
-          sd[(ty + 32 * ii) * LDS + tx + 16 * jj] = acc[ii][jj];
-      for (int e = tid; e < BLK * BLK; e += nt)
-        sw[(e / BLK) * LDS + e % BLK] =
-            Wg[static_cast<size_t>(i0 + e / BLK) * BLK + e % BLK];
-      __syncthreads();
-      oi::tile_abt(sd, sw, acc);  // S W_i^T
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
-          U[static_cast<size_t>(j0 + ty + 32 * ii) * n + i0 + tx + 16 * jj] =
-              -acc[ii][jj];
-      __syncthreads();
+      const float* arow = A + ib * BLK * n;
+      // S = sum_{jb <= kb < ib} U_jk L_ik^T, into R
+      oi::tile_stream<false, false, false>(
+          ring, R, n, n, 1, [&](int) { return ib - jb; },
+          [&](int, int p, const float*& a, const float*& b) {
+            a = urow + (jb + p) * BLK;
+            b = arow + (jb + p) * BLK;
+          },
+          [](int, float acc[2][4][4]) { oi::frag_zero(acc); },
+          [&](int, float acc[2][4][4]) { oi::frag_store_shared(R, acc); });
+      // U_ji = -S W_i^T
+      oi::tile_stream<true, false, true>(
+          ring, R, 0, BLK, 1, [](int) { return 1; },
+          [&](int, int, const float*& a, const float*& b) {
+            a = nullptr;
+            b = Wg + ib * BLK * BLK;
+          },
+          [](int, float acc[2][4][4]) { oi::frag_zero(acc); },
+          [&](int, float acc[2][4][4]) {
+            oi::frag_store(urow + ib * BLK, n, acc);
+          });
     }
   }
 
   // ---- 5. the five sums over the lower block triangle of Q ----------------
-  const float c_jit = jitter * hyp.sf2;
+  // output o is block (ib, jb), jb <= ib, jb outer: Q_ij + alpha_i alpha_j^T
+  // = sum_{kb >= ib} U_ik U_jk^T
   float g0 = 0.f, g1 = 0.f, g2 = 0.f, gs = 0.f, gn = 0.f;
-  for (int jb = 0; jb < nb; ++jb) {
-    const int j0 = jb * BLK;
-    for (int ib = jb; ib < nb; ++ib) {
-      const int i0 = ib * BLK;
-      oi::tile_zero(acc);
-      for (int kb = ib; kb < nb; ++kb) {
-        oi::load_block(sd, U, i0, kb * BLK, n);
-        if (ib != jb) oi::load_block(sw, U, j0, kb * BLK, n);
-        __syncthreads();
-        oi::tile_abt_acc(sd, ib != jb ? sw : sd, acc);  // += U_ik U_jk^T
-        __syncthreads();
-      }
-      const float mult = (ib == jb) ? 1.f : 2.f;
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        const int gi = i0 + ty + 32 * ii;
-        const float mi = q[3 * n + gi];
-        const float ai = al[gi];
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          const int gj = j0 + tx + 16 * jj;
-          const float qm =
-              mult * (acc[ii][jj] - ai * al[gj]) * (mi * q[3 * n + gj]);
-          const float d0 = q[gi] - q[gj];
-          const float d1 = q[n + gi] - q[n + gj];
-          const float d2 = q[2 * n + gi] - q[2 * n + gj];
-          float kv, wv;
-          shape_and_weight(kind, d0 * d0 + d1 * d1 + d2 * d2, kv, wv);
-          const float qw = qm * (hyp.sf2 * wv);
-          g0 = fmaf(qw, d0 * d0, g0);
-          g1 = fmaf(qw, d1 * d1, g1);
-          g2 = fmaf(qw, d2 * d2, g2);
-          gs = fmaf(qm, hyp.sf2 * kv, gs);
-          if (gi == gj) {  // only in diagonal blocks, where mult = 1
-            gs = fmaf(c_jit, qm, gs);
-            gn = fmaf(hyp.sn2, qm, gn);
-          }
-        }
-      }
+  auto block_of = [nb](int o, int& ib, int& jb) {
+    jb = 0;
+    while (o >= nb - jb) {
+      o -= nb - jb;
+      ++jb;
     }
-  }
+    ib = jb + o;
+  };
+  oi::tile_stream<false, false, false>(
+      ring, R, n, n, nb * (nb + 1) / 2,
+      [&](int o) {
+        int ib, jb;
+        block_of(o, ib, jb);
+        return nb - ib;
+      },
+      [&](int o, int p, const float*& a, const float*& b) {
+        int ib, jb;
+        block_of(o, ib, jb);
+        a = U + ib * BLK * n + (ib + p) * BLK;
+        b = U + jb * BLK * n + (ib + p) * BLK;
+      },
+      [](int, float acc[2][4][4]) { oi::frag_zero(acc); },
+      [&](int o, float acc[2][4][4]) {
+        int ib, jb;
+        block_of(o, ib, jb);
+        // read here, not kept live across the products
+        int r0, c0;
+        oi::frag_origin(r0, c0);
+        const oi::Hypers hyp =
+            oi::load_hypers(oi::opaque(log_hypers) + cell * 5);
+        const float c_jit = jitter * hyp.sf2;
+        const float mult = (ib == jb) ? 1.f : 2.f;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int gi = ib * BLK + r0 + 16 * mt + 8 * h;
+            const float mi = q[3 * n + gi];
+            const float ai = al[gi];
+#pragma unroll
+            for (int ct = 0; ct < 4; ++ct)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int gj = jb * BLK + c0 + 8 * ct + e;
+                const float qm = mult * (acc[mt][ct][2 * h + e] - ai * al[gj]) *
+                                 (mi * q[3 * n + gj]);
+                const float d0 = q[gi] - q[gj];
+                const float d1 = q[n + gi] - q[n + gj];
+                const float d2 = q[2 * n + gi] - q[2 * n + gj];
+                float kv, wv;
+                shape_and_weight(kind, d0 * d0 + d1 * d1 + d2 * d2, kv, wv);
+                const float qw = qm * (hyp.sf2 * wv);
+                g0 = fmaf(qw, d0 * d0, g0);
+                g1 = fmaf(qw, d1 * d1, g1);
+                g2 = fmaf(qw, d2 * d2, g2);
+                gs = fmaf(qm, hyp.sf2 * kv, gs);
+                if (gi == gj) {  // only in diagonal blocks, where mult = 1
+                  gs = fmaf(c_jit, qm, gs);
+                  gn = fmaf(hyp.sn2, qm, gn);
+                }
+              }
+          }
+      });
   g0 = warp_sum(g0);
   g1 = warp_sum(g1);
   g2 = warp_sum(g2);
@@ -328,7 +351,7 @@ extern "C" int oi_k3_nll(const float* log_hypers, const float* x,
   if (with_grad && (u_scr == nullptr || grad == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = static_cast<int>(sizeof(float)) *
-                   (2 * BLK * LDS + 6 * n + 8 * kWarps);
+                   (oi::stage_floats(n) + 6 * n + 8 * kWarps);
   auto kernel = with_grad ? k3_nll_kernel<true> : k3_nll_kernel<false>;
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

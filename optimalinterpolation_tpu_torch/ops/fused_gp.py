@@ -6,7 +6,8 @@ PyTorch counterpart of ``optimalinterpolation_tpu/ops/pallas_gp.py``
 (``gp_predict``, body ``_predict_kernel``; ``gp_nll`` / ``gp_nll_and_grad``,
 body ``_nll_kernel``). For the predict, one CUDA block per cell builds the masked covariance
 from x, factors it with a blocked Cholesky whose 128x128 diagonal blocks go
-through the same routine as K1, runs one forward sweep for
+through the same routine as K1 and whose tile products run in 3xTF32 on the
+tensor cores, runs one forward sweep for
 z = L^-1 (y - mean) m and v = L^-1 k*, and writes mean, std, lZ, prior_std
 and ok. The kernel allocates nothing: this wrapper hands it a (B, N, N) and
 a (B, N, 128) float32 scratch.
@@ -24,6 +25,7 @@ launches its kernel or raises.
 
 from __future__ import annotations
 
+import collections
 import math
 
 import torch
@@ -183,15 +185,18 @@ def gp_nll(
     jitter: float = 0.0,
 ) -> torch.Tensor:
     """Batched masked GP NLL (B,), value only (the line search's
-    evaluations). ``gp_nll.launches`` counts K3 value launches."""
+    evaluations). ``gp_nll.launches`` counts K3 value launches and
+    ``gp_nll.rows[B]`` those of B rows."""
     if x.device.type == "cpu":
         return gp_nll_plain(log_hypers, x, y, mask, kind=kind, jitter=jitter)
     nll, _ = _launch_k3(log_hypers, x, y, mask, kind, jitter, with_grad=False)
     gp_nll.launches += 1
+    gp_nll.rows[x.shape[0]] += 1
     return nll
 
 
 gp_nll.launches = 0
+gp_nll.rows = collections.Counter()
 
 
 def gp_nll_and_grad(

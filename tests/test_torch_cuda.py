@@ -216,3 +216,82 @@ def test_wrappers_refuse_float64_on_card(card):
         fused_gp.gp_predict(*args)
     with pytest.raises(TypeError):
         fused_gp.gp_nll_and_grad(args[0], args[1], args[2], args[4])
+
+
+def _k2_problem(rng, b, n, card):
+    x = rng.uniform(-3e5, 3e5, (b, n, 3)) * np.asarray([1, 1, 1.2e-5])
+    y = rng.normal(0.1, 0.05, (b, n))
+    mask = (rng.random((b, n)) < 0.85).astype(np.float64)
+    mask[2] = 0.0
+    h = np.log([1.5e5, 2.0e5, 2.0, 0.03, 0.005]) + rng.normal(0.0, 0.2, (b, 5))
+    h[-1] = np.nan
+    xs = rng.uniform(-1e5, 1e5, (b, 3)) * np.asarray([1, 1, 0]) + np.asarray([0.0, 0.0, 4.0])
+    return [torch.tensor(a, dtype=torch.float32, device=card)
+            for a in (h, x, y, xs, mask, np.full((b,), 0.15))]
+
+
+def _exactly(a, b):
+    torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("n", [128, 512, 1024])
+def test_rows_do_not_depend_on_the_launch(card, n):
+    """K3 (both variants) and K2 give a row the same bits whichever rows share
+    its launch: one row, and a permuted subset with the all-padding and the
+    NaN row, against the full 132-row launch (one CTA per row; the line
+    search evaluates subsets of rows and relies on it)."""
+    b = 132
+    kw = dict(kind=Kernel.MATERN32, jitter=1e-6)
+    k3 = _k3_problem(np.random.default_rng(20 + n), b, n, card)
+    k2 = _k2_problem(np.random.default_rng(30 + n), b, n, card)
+    value = fused_gp.gp_nll(*k3, **kw)
+    nll, grad = fused_gp.gp_nll_and_grad(*k3, **kw)
+    pred = fused_gp.gp_predict(*k2, **kw)
+    for rows in ([0], [5, 1, 2, b - 1, 77, 40, 3, 100]):
+        idx = torch.tensor(rows, device=card)
+        sub3 = [a[idx].contiguous() for a in k3]
+        _exactly(fused_gp.gp_nll(*sub3, **kw), value[idx])
+        sub_nll, sub_grad = fused_gp.gp_nll_and_grad(*sub3, **kw)
+        _exactly(sub_nll, nll[idx])
+        _exactly(sub_grad, grad[idx])
+        sub_pred = fused_gp.gp_predict(*[a[idx].contiguous() for a in k2], **kw)
+        for got, full in zip(sub_pred, pred):
+            _exactly(got, full[idx])
+    # the one-row launch is right, not only consistent
+    ref_v, ref_g = fused_gp.gp_nll_and_grad_plain(*[a[:1].double() for a in k3], **kw)
+    torch.testing.assert_close(nll[:1].double(), ref_v, rtol=1e-5, atol=0)
+
+
+def test_k3_ill_conditioned_matern_cell(card):
+    """sn2 at 1e-9 sf2, so the diagonal is sf2 (1 + jitter): the condition
+    number reaches ~1e6. Value and gradient within the larger of the usual
+    gates and 4 x the float32 twin's own deviation; K2 on the same cells
+    within 1e-4 m or 4 x its twin."""
+    rng = np.random.default_rng(8)
+    b, n = 4, 1024
+    x = rng.uniform(-3e5, 3e5, (b, n, 3)) * np.asarray([1, 1, 1.2e-5])
+    y = rng.normal(0.0, 0.05, (b, n))
+    mask = (rng.random((b, n)) < 0.85).astype(np.float64)
+    h = np.tile(np.log([1.5e5, 2.0e5, 2.0, 0.03, 0.03e-9]), (b, 1))
+    args = [torch.tensor(a, dtype=torch.float32, device=card) for a in (h, x, y, mask)]
+    kw = dict(kind=Kernel.MATERN32, jitter=1e-6)
+    nll, grad = fused_gp.gp_nll_and_grad(*args, **kw)
+    ref_v, ref_g = fused_gp.gp_nll_and_grad_plain(*[a.double() for a in args], **kw)
+    twin_v, twin_g = fused_gp.gp_nll_and_grad_plain(*args, **kw)
+    assert bool(torch.isfinite(ref_v).all()) and bool(torch.isfinite(twin_v).all())
+    dv = ((nll.double() - ref_v).abs() / ref_v.abs().clamp_min(1.0)).max().item()
+    tv = ((twin_v.double() - ref_v).abs() / ref_v.abs().clamp_min(1.0)).max().item()
+    assert dv <= max(1e-5, 4.0 * tv)
+    dg = (grad.double() - ref_g).abs().max().item()
+    tg = (twin_g.double() - ref_g).abs().max().item()
+    assert dg <= max(1e-3 * ref_g.abs().max().item(), 4.0 * tg)
+    xs = torch.zeros((b, 3), device=card)
+    xs[:, 2] = 4.0
+    pargs = [args[0], args[1], args[2], xs, args[3], torch.full((b,), 0.15, device=card)]
+    r = fused_gp.gp_predict(*pargs, **kw)
+    ref = fused_gp.gp_predict_plain(*[a.double() for a in pargs], **kw)
+    twin = fused_gp.gp_predict_plain(*pargs, **kw)
+    assert bool(r.ok.all()) and bool(ref.ok.all())
+    for got, want, t32 in ((r.mean, ref.mean, twin.mean), (r.std, ref.std, twin.std)):
+        dev32 = (t32.double() - want).abs().max().item()
+        assert (got.double() - want).abs().max().item() <= max(1e-4, 4.0 * dev32)
