@@ -47,6 +47,21 @@ phase:
              nats, mean <= 0.7; K3's fit against the float32 twin's from one
              start, p95 <= 0.05); a histogram of rows per K3 value launch.
 
+  8. objectives  K3, the blocked objective and the rank-512 Nystrom objective
+             on the day's cells: value and value + gradient times at N = 1024
+             (132, 8 and 1 rows) and, blocked and Nystrom, at N = 2048 and
+             4096 (16 rows), each beside its bound and the K1 launches of one
+             evaluation; both new objectives in float32 against float64 on
+             the CPU (value 1e-5 relative, gradient 1e-3 relative in norm) and
+             a row's value in a 1-row and the 132-row evaluation (bit-equal
+             recorded, 1e-6 relative gated); peak memory a row against the
+             pipeline's chunk models; the fine stage at N = 1024 fitted under
+             each objective from one warm start (1,024 cells: wall,
+             iterations, evaluations, launches, converged share, float64
+             exact-NLL cost and exact-prediction deviations against the K3
+             fit, rmse vs the truth), K1 launched and K3 not by the new ones;
+             and the thresholds ``"auto"``'s rule gives, beside the defaults.
+
 Then a ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line; nothing is caught.
@@ -749,6 +764,367 @@ def phase_fit(tmp: str, day: _Day) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# objectives: K3, the blocked objective and Nystrom M = 512 on the day's cells
+# ---------------------------------------------------------------------------
+
+NYS_M = 512
+# the three objectives as optimizer._resolve_backend names them
+OBJECTIVES = ("fused", "blocked", f"nystroem:{NYS_M}")
+JITTER = 1e-6
+# Routing rule (models/optimizer.py::_resolve_backend): Nystrom's quality is held when its
+# fit's rmse vs the truth is within 0.5 mm of the exact fit's and its mean
+# float64 exact-NLL cost is <= NLL_MEAN; a tie (within 10%) goes to the
+# exact objective.
+RMSE_HELD_M = 5e-4
+TIE = 0.10
+
+
+def _objective_flops(backend: str, n: int, rows: int, with_grad: bool) -> float:
+    """Floating-point operations of one evaluation of ``rows`` cells,
+    counted from the code (a multiply-add is two). The exact objectives:
+    the Cholesky, N^3 / 3; with the gradient also L^-1 and the lower
+    triangle of L^-T L^-1, N^3 in all (K3's count). The Nystrom objective:
+    Phi = Knm Wm^T and Phi^T Phi, 2 N M^2 each, and two factor + inverse of
+    an (M, M) matrix, 2 M^3 / 3 each; its backward pass three more N M^2
+    products (6 N M^2) and the two chol_inv pullbacks, 10 M^3 each."""
+    if backend.startswith("nystroem"):
+        f = 4.0 * n * NYS_M ** 2 + 4.0 * NYS_M ** 3 / 3
+        if with_grad:
+            f += 6.0 * n * NYS_M ** 2 + 20.0 * NYS_M ** 3
+    else:
+        f = float(n) ** 3 if with_grad else float(n) ** 3 / 3
+    return rows * f
+
+
+def _objective_data(day, n: int, rows: int):
+    """The first ``rows`` real cells of the day's bucket of capacity ``n``,
+    valid points shuffled as the pipeline shuffles them (the Nystrom
+    landmarks are the first M slots), on the card: (h, x, y, mask, rows,
+    the bucket copy). Hypers: the slice's constants."""
+    import copy
+
+    from optimalinterpolation_tpu_torch.pipeline.daily import _permute_valid_points
+
+    b = copy.deepcopy(next(bb for bb in day.batches if bb.capacity == n))
+    _permute_valid_points(b)
+    idx = np.nonzero(b.cell_index >= 0)[0][:rows]
+    x, z, m = (torch.from_numpy(np.ascontiguousarray(a[idx])).cuda() for a in (b.x, b.z, b.mask))
+    h = torch.log(torch.tensor([2e5, 2e5, 2.0, 0.03, 0.005], device="cuda")).expand(
+        len(idx), 5).contiguous()
+    return h, x, z - PRIOR, m, idx, b
+
+
+def _fns(backend: str, x, y, m):
+    from optimalinterpolation_tpu_torch.models import optimizer
+    from optimalinterpolation_tpu_torch.ops.kernels import Kernel
+
+    return optimizer._batched_fns(Kernel.MATERN32, JITTER, backend, x, y, m)
+
+
+def _k_launches() -> tuple:
+    from optimalinterpolation_tpu_torch.ops import blocked_gp, fused_gp
+
+    return (blocked_gp._factor_invert.launches, fused_gp.gp_nll.launches,
+            fused_gp.gp_nll_and_grad.launches)
+
+
+def _objective_times(data: dict) -> list:
+    """CUDA-event times of the value and the value + gradient of each
+    objective: N = 1024 on 132, 8 and 1 rows, and the blocked and Nystrom
+    objectives at N = 2048 and 4096 on 16 rows; beside each its bound
+    (operations at the float32 peak, or bytes) and the K1 / K3 launches one
+    evaluation makes."""
+    cases = [(b, 1024, r) for b in OBJECTIVES for r in (132, 8, 1)]
+    cases += [(b, n, 16) for n in (2048, 4096) for b in OBJECTIVES[1:]]
+    out = []
+    for backend, n, rows in cases:
+        h, x, y, m = (a[:rows].contiguous() for a in data[n][:4])
+        value_fn, vg_fn, _ = _fns(backend, x, y, m)
+        k0 = _k_launches()
+        value_fn(h)
+        k1 = _k_launches()
+        vg_fn(h)
+        k2 = _k_launches()
+        reps = 3 if rows * n ** 2 > 64 * 1024 ** 2 else 10
+        line = {"backend": backend, "n": n, "rows": rows,
+                "value_ms": _ms(lambda: value_fn(h), reps), "ms": _ms(lambda: vg_fn(h), reps),
+                "k1_launches_value": k1[0] - k0[0], "k1_launches_grad": k2[0] - k1[0],
+                "k3_launches": (k1[1] - k0[1]) + (k2[2] - k1[2])}
+        in_bytes = rows * (5 * n + 11) * 4
+        line["value_bound"] = _bound(in_bytes, _objective_flops(backend, n, rows, False))
+        line["bound"] = _bound(in_bytes, _objective_flops(backend, n, rows, True))
+        out.append(line)
+    return out
+
+
+def _objective_accuracy(data: dict) -> dict:
+    """The new objectives in float32 on the card against the same port
+    functions in float64 on the CPU, 8 rows at N = 1024: value within 1e-5
+    relative, gradient within 1e-3 relative in norm (per row). Then: is a
+    row's value the same bits in a 1-row and in the 132-row evaluation?
+    Recorded; a deviation above 1e-6 relative fails."""
+    out = {}
+    h, x, y, m = data[1024][:4]
+    for backend in OBJECTIVES[1:]:
+        sub = [a[:8].contiguous() for a in (h, x, y, m)]
+        v32, g32 = _fns(backend, *sub[1:])[1](sub[0])
+        v64, g64 = _fns(backend, *(a.cpu().double() for a in sub[1:]))[1](sub[0].cpu().double())
+        dv = ((v32.cpu().double() - v64).abs() / v64.abs()).max().item()
+        dg = (torch.linalg.vector_norm(g32.cpu().double() - g64, dim=1)
+              / torch.linalg.vector_norm(g64, dim=1)).max().item()
+        if not (torch.isfinite(v64).all() and dv <= 1e-5 and dg <= 1e-3):
+            _fail(f"{backend} on the card vs float64: value {dv} (<= 1e-5), gradient {dg} "
+                  "(<= 1e-3 relative in norm)")
+        wave = _fns(backend, x, y, m)[0](h)
+        one = _fns(backend, *(a[:1].contiguous() for a in (x, y, m)))[0](h[:1].contiguous())
+        rel = ((one[0] - wave[0]).abs() / wave[0].abs()).item()
+        if not rel <= 1e-6:
+            _fail(f"{backend}: a row's value in a 1-row evaluation is {rel} relative off the "
+                  "132-row evaluation's")
+        out[backend] = {"d_value_rel": dv, "d_grad_rel_norm": dg,
+                        "one_row_bit_equal_to_wave": bool(torch.equal(one[0], wave[0])),
+                        "one_row_vs_wave_rel": rel}
+    return out
+
+
+def _objective_memory(data: dict) -> dict:
+    """Peak device bytes a row of one evaluation holds, 16 rows, against
+    the pipeline's chunk models (pipeline/daily.py): the blocked objective
+    in (N, N) buffers, with the line search's carried factors alive while
+    the next trial factors and the gradient from them; the Nystrom objective
+    with its gradient at two N, solved for (N, M) and (M, M) buffers."""
+    from optimalinterpolation_tpu_torch.pipeline import daily
+
+    def peak_per_row(backend, n):
+        h, x, y, m = (a[:16].contiguous() for a in data[n][:4])
+        value_fn, vg_fn, pair = _fns(backend, x, y, m)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        if pair is None:
+            vg_fn(h)
+        else:
+            _, carried = pair[0](h)
+            pair[0](h + 0.01)
+            pair[1](h, carried)
+            del carried
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 16 / 4  # floats a row
+
+    def nystroem_floats(n, nm, mm):
+        return nm * n * NYS_M + mm * NYS_M ** 2
+
+    out = {f"blocked_n{n}_nn_buffers": peak_per_row("blocked", n) / n ** 2 for n in (1024, 2048)}
+    p1, p4 = (peak_per_row(OBJECTIVES[2], n) for n in (1024, 4096))
+    nm = (p4 - p1) / (NYS_M * (4096 - 1024))
+    mm = (p1 - nystroem_floats(1024, nm, 0)) / NYS_M ** 2
+    model = (daily._BLOCKED_OBJECTIVE_BUFFERS, daily._NYSTROEM_NM_BUFFERS,
+             daily._NYSTROEM_MM_BUFFERS)
+    out.update(nystroem_nm_buffers=nm, nystroem_mm_buffers=mm,
+               model=dict(zip(("blocked", "nystroem_nm", "nystroem_mm"), model)))
+    out["model_ok"] = bool(
+        max(out["blocked_n1024_nn_buffers"], out["blocked_n2048_nn_buffers"]) <= model[0]
+        and all(nystroem_floats(n, nm, mm) <= nystroem_floats(n, *model[1:])
+                for n in (1024, 4096)))
+    return out
+
+
+class _EvalCount:
+    """Counts the objective evaluations of optimizer runs, by kind, in calls
+    and rows, through a wrapper around ``optimizer._batched_fns``."""
+
+    def __init__(self):
+        from optimalinterpolation_tpu_torch.models import optimizer
+
+        self.optimizer = optimizer
+        self.orig = optimizer._batched_fns
+        self.calls, self.rows = {}, {}
+
+    def _wrap(self, kind, fn):
+        def counted(h, *args, **kw):
+            self.calls[kind] = self.calls.get(kind, 0) + 1
+            self.rows[kind] = self.rows.get(kind, 0) + int(h.shape[0])
+            return fn(h, *args, **kw)
+        return counted
+
+    def __enter__(self):
+        def fns(*args):
+            value_fn, vg_fn, pair = self.orig(*args)
+            if pair is not None:
+                pair = (self._wrap("value", pair[0]), self._wrap("grad_from_factors", pair[1]))
+            return self._wrap("value", value_fn), self._wrap("value_and_grad", vg_fn), pair
+        self.optimizer._batched_fns = fns
+        return self
+
+    def __exit__(self, *exc):
+        self.optimizer._batched_fns = self.orig
+
+
+def _objective_ab(day) -> dict:
+    """The fine stage at N = 1024 under each objective: 1,024 cells of the
+    day's 1024 bucket, from one shared warm start (a cold K3 cascade stage
+    on the 512-point prefix, as the pipeline's), at the day's fine-stage
+    settings. For each: wall, iterations, evaluations by kind, K1 / K3
+    launches, converged share, peak memory; against the K3 fit, the float64
+    exact-NLL cost and the exact (float64) predictions' |d mean| and
+    |d std|; rmse of the predictions vs the truth."""
+    from optimalinterpolation_tpu_torch.models import exact_gp
+    from optimalinterpolation_tpu_torch.models.optimizer import (
+        _SEG_SCHEDULE,
+        OptimizeConfig,
+        optimize_mll_chunked,
+    )
+    from optimalinterpolation_tpu_torch.ops import fused_gp
+    from optimalinterpolation_tpu_torch.pipeline.daily import DailyConfig, _chunk_rows
+
+    _, x, y, m, idx, b = _objective_data(day, 1024, 1024)
+    cells = len(idx)
+    cfg = DailyConfig()
+    x0 = exact_gp.HYPER_INIT_LOG(RES_KM * 1e3, device="cuda").expand(cells, 5).contiguous()
+    t0 = time.perf_counter()
+    warm = optimize_mll_chunked(
+        x0, *(a[:, :512].contiguous() for a in (x, y, m)),
+        OptimizeConfig(backend="fused", ftol_abs=cfg.warmstart_ftol, jitter=JITTER),
+        chunk_rows=_chunk_rows(512, cells, cfg, 4, "fused"), segment_iters=cfg.opt_segment_iters)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    x64, y64, m64 = (a.double() for a in (x, y, m))
+    xs64 = torch.from_numpy(b.xstar[idx]).cuda().double()
+    mean64 = torch.full((cells,), PRIOR, dtype=torch.float64, device="cuda")
+    ci = b.cell_index[idx]
+    truth = day.truth[day.active_ij[0][ci], day.active_ij[1][ci]]
+
+    def exact64(h):
+        """float64 exact NLL and posterior (mean, std), in chunks of 128."""
+        nll, mean, std = [], [], []
+        for s in range(0, cells, 128):
+            sl = slice(s, s + 128)
+            hh = h[sl].double()
+            nll.append(fused_gp.gp_nll_plain(hh, x64[sl], y64[sl], m64[sl], jitter=JITTER))
+            p = fused_gp.gp_predict_plain(hh, x64[sl], y64[sl] + PRIOR, xs64[sl], m64[sl],
+                                          mean64[sl], jitter=JITTER)
+            mean.append(p.mean)
+            std.append(p.std)
+        return torch.cat(nll), torch.cat(mean), torch.cat(std)
+
+    fits = {}
+    for backend in ("fused", "blocked", "nystroem"):
+        ocfg = OptimizeConfig(backend=backend, nystroem_m=NYS_M, ftol_abs=1e-3, jitter=JITTER)
+        resolved = OBJECTIVES[("fused", "blocked", "nystroem").index(backend)]
+        chunk = _chunk_rows(1024, cells, cfg, 4, resolved)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k0 = _k_launches()
+        with _EvalCount() as count:
+            t0 = time.perf_counter()
+            res = optimize_mll_chunked(warm.log_hypers, x, y, m, ocfg, chunk_rows=chunk,
+                                       segment_iters=cfg.opt_segment_iters,
+                                       lead_schedule=(0,) + _SEG_SCHEDULE)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        k1 = _k_launches()
+        nll, mean, std = exact64(res.log_hypers)
+        fits[backend] = {
+            "backend": resolved, "wall_s": wall, "chunk_rows": chunk,
+            "iters_sum": int(res.iters.sum()), "evaluation_calls": count.calls,
+            "evaluation_rows": count.rows, "k1_launches": k1[0] - k0[0],
+            "k3_launches": {"value": k1[1] - k0[1], "grad": k1[2] - k0[2]},
+            "converged_share": res.converged.double().mean().item(),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "rmse_vs_truth_m": float(np.sqrt(np.mean((mean.cpu().numpy() - truth) ** 2))),
+            "_nll": nll, "_mean": mean, "_std": std,
+        }
+        if not (torch.isfinite(nll).all() and torch.isfinite(mean).all()):
+            _fail(f"the {backend} fit left cells whose exact NLL or prediction is not finite")
+    ref = fits["fused"]
+    for f in fits.values():
+        cost = f["_nll"] - ref["_nll"]
+        dm = (f["_mean"] - ref["_mean"]).abs()
+        ds_ = (f["_std"] - ref["_std"]).abs()
+        f.update(nll_cost_vs_k3={"mean": cost.mean().item(), "median": cost.median().item(),
+                                 "p99": cost.quantile(0.99).item()},
+                 d_mean_vs_k3={"max": dm.max().item(), "p99": dm.quantile(0.99).item()},
+                 d_std_vs_k3={"max": ds_.max().item(), "p99": ds_.quantile(0.99).item()})
+    for f in fits.values():
+        for k in ("_nll", "_mean", "_std"):
+            del f[k]
+    return {"cells": cells, "warm_start_s": warm_s, "warm_iters_sum": int(warm.iters.sum()),
+            "fits": fits}
+
+
+def _routing_rule(times: list, ab: dict) -> dict:
+    """``"auto"``'s thresholds by the rule (PERF.md, routing): the fit time
+    a cell at N = 1024 is the A/B's wall per cell; at N = 2048 and 4096 it
+    is estimated from the evaluations a cell of the A/B made, by kind, times
+    the per-row evaluation times at that N (a gradient from carried factors
+    costs the value + gradient time less the value time). Nystrom takes the
+    smallest N at which it is faster than the exact objective ``"auto"``
+    would use there by more than the tie margin, with its quality held;
+    the blocked objective takes the N from which it beats K3 on value +
+    gradient at 132 rows, else it stays above K3's range (2049)."""
+    per_row = {(t["backend"], t["n"]): (t["value_ms"] / t["rows"], t["ms"] / t["rows"])
+               for t in times if t["rows"] in (132, 16)}
+    cells = ab["cells"]
+
+    def fit_ms(backend, n):
+        f = ab["fits"][backend.split(":")[0]]
+        if n == 1024:
+            return f["wall_s"] * 1e3 / cells
+        v, vg = per_row[(backend, n)]
+        rows = f["evaluation_rows"]
+        return (rows.get("value", 0) * v + rows.get("value_and_grad", 0) * vg
+                + rows.get("grad_from_factors", 0) * (vg - v)) / cells
+
+    k3 = ab["fits"]["fused"]
+    nys = ab["fits"]["nystroem"]
+    held = (nys["rmse_vs_truth_m"] - k3["rmse_vs_truth_m"] <= RMSE_HELD_M
+            and nys["nll_cost_vs_k3"]["mean"] <= NLL_MEAN)
+    v_k3, v_blk = per_row[("fused", 1024)][1], per_row[("blocked", 1024)][1]
+    blocked_min_n = 1024 if v_blk < (1 - TIE) * v_k3 else 2049
+    est, nystroem_min_n = {}, 0
+    for n in (1024, 2048, 4096):
+        exact = "fused" if n <= 1024 and n < blocked_min_n else "blocked"
+        est[n] = {"exact": exact, "exact_ms_per_cell": fit_ms(exact, n),
+                  "nystroem_ms_per_cell": fit_ms(OBJECTIVES[2], n)}
+        if held and not nystroem_min_n and \
+                est[n]["nystroem_ms_per_cell"] < (1 - TIE) * est[n]["exact_ms_per_cell"]:
+            nystroem_min_n = n
+    from optimalinterpolation_tpu_torch.models import optimizer
+
+    defaults = {"nystroem_min_n": optimizer.OptimizeConfig().nystroem_min_n,
+                "blocked_min_n": optimizer.blocked_min_n()}
+    chosen = {"nystroem_min_n": nystroem_min_n, "blocked_min_n": blocked_min_n}
+    return {"nystroem_quality_held": held, "fit_ms_per_cell": {str(n): v for n, v in est.items()},
+            "rule": chosen, "defaults": defaults, "defaults_follow_rule": chosen == defaults}
+
+
+def phase_objectives(day) -> dict:
+    """The three objectives on the day's cells: times, accuracy, memory,
+    the fine-stage A/B and the routing rule's thresholds. Returns K1's
+    launches on the two new objectives' A/B fits."""
+    data = {n: _objective_data(day, n, 132 if n == 1024 else 16) for n in (1024, 2048, 4096)}
+    times = _objective_times(data)
+    for t in times:
+        _phase("objective_times", **t)
+    accuracy = _objective_accuracy(data)
+    memory = _objective_memory(data)
+    ab = _objective_ab(day)
+    rule = _routing_rule(times, ab)
+    _phase("objectives", accuracy=accuracy, memory=memory, ab=ab, routing=rule)
+    if not memory["model_ok"]:
+        _fail(f"an objective holds more device memory a row than the pipeline's chunk "
+              f"model: {memory}")
+    for backend in ("blocked", "nystroem"):
+        f = ab["fits"][backend]
+        if f["k1_launches"] == 0 or sum(f["k3_launches"].values()) != 0:
+            _fail(f"the {backend} fit did not run on K1 alone: K1 {f['k1_launches']}, "
+                  f"K3 {f['k3_launches']}")
+    return {"blocked objective": ab["fits"]["blocked"]["k1_launches"],
+            "nystroem chol_inv": ab["fits"]["nystroem"]["k1_launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False")
@@ -766,15 +1142,20 @@ def main() -> int:
         k3 = phase_k3()
         quick = phase_slice(tmp, day)
         fit = phase_fit(tmp, day)
+        objectives = phase_objectives(day)
 
     def paths(name):
         return {"launches": fit[name], "launches_by_path": {"quicklook": quick[name],
                                                             "fit": fit[name]}}
 
+    k1_paths = paths("K1")
+    k1_paths["launches_by_path"].update(objectives)
     kernels = [
         {"name": "K1 factor_invert_128", "route": "cuda",
          "source": "optimalinterpolation_tpu_torch/csrc/k1_factor_invert.cu",
-         "replaces": "optimalinterpolation_tpu/ops/blocked_gp.py:80", **paths("K1"), **k1},
+         "replaces": "optimalinterpolation_tpu/ops/blocked_gp.py:80", **k1_paths,
+         "launched_by": ["blocked predict (quicklook, fit)", "blocked objective",
+                         "Nystrom chol_inv"], **k1},
         {"name": "K2 fused predict", "route": "cuda",
          "source": "optimalinterpolation_tpu_torch/csrc/k2_predict.cu",
          "replaces": "optimalinterpolation_tpu/ops/pallas_gp.py:795", **paths("K2"), **k2},

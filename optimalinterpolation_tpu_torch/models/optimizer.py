@@ -8,28 +8,32 @@ log-hyperparameters of thousands of cells at once. Every update is a row-wise
 its batch, its chunk or its segment; finished cells are frozen while the
 slowest finish, and :func:`optimize_mll_chunked` drops them between segments.
 
-The objective is evaluated by **K3** (``ops.fused_gp.gp_nll`` /
-``gp_nll_and_grad``) or by the plain autograd form of ``models.exact_gp``
-(backend ``"xla"``, the name the JAX package gives its plain path). The
-optimizer's own arithmetic, on (B, 5) vectors, is plain torch on the device
-of its inputs, and the L-BFGS state stays there. JAX's ``lax.while_loop``
-becomes a Python loop whose condition reads from the device which rows are
-still at work: one host synchronisation per L-BFGS iteration and one per
-line-search step, counted in ``_lbfgs_segment.host_syncs``. The objective is
-then evaluated for those rows only, which leaves every cell's trajectory as
-it was.
+The objective is one of four, chosen by :func:`_resolve_backend` as the JAX
+package chooses: **K3** (``ops.fused_gp.gp_nll`` / ``gp_nll_and_grad``), the
+blocked exact objective (``ops.blocked_gp``, K1 under its Cholesky), the
+rank-M Nystrom objective (``ops.nystroem_gp``, K1 under both of its
+factorizations) or the plain autograd form of ``models.exact_gp`` (backend
+``"xla"``, the name the JAX package gives its plain path). The optimizer's
+own arithmetic, on (B, 5) vectors, is plain torch on the device of its
+inputs, and the L-BFGS state stays there. JAX's ``lax.while_loop`` becomes a
+Python loop whose condition reads from the device which rows are still at
+work: one host synchronisation per L-BFGS iteration and one per line-search
+step, counted in ``_lbfgs_segment.host_syncs``. The objective is then
+evaluated for those rows only, which leaves every cell's trajectory as it
+was.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from optimalinterpolation_tpu_torch.models import exact_gp
-from optimalinterpolation_tpu_torch.ops import fused_gp
+from optimalinterpolation_tpu_torch.ops import blocked_gp, fused_gp, nystroem_gp
 from optimalinterpolation_tpu_torch.ops import kernels as K
 
 __all__ = [
@@ -41,6 +45,8 @@ __all__ = [
     "optimize_mll_chunked",
     "lbfgs_state_from_numpy",
     "lbfgs_state_to_numpy",
+    "blocked_min_n",
+    "routed_nystroem_m",
 ]
 
 
@@ -56,6 +62,12 @@ _RESTART_OFFSETS = (
 )
 
 
+# "auto"'s thresholds, chosen by the rule in _resolve_backend's docstring
+# from measurements on an H100 (OptimizeConfig, blocked_min_n).
+_NYSTROEM_MIN_N = 2048
+_BLOCKED_MIN_N = 2049
+
+
 @dataclasses.dataclass(frozen=True)
 class OptimizeConfig:
     """Knobs of the per-cell MLL optimization (``optimizer.py:44-110``).
@@ -65,8 +77,23 @@ class OptimizeConfig:
     ``restarts``: every cell is also optimized from ``_RESTART_OFFSETS`` and
     the best NLL wins; 1 is the reference's single trajectory from x0.
     ``backend``: ``"auto"``, ``"fused"`` (K3; ``"pallas"`` is a synonym, so
-    a JAX config carries across) or ``"xla"`` (plain autograd objective, any
-    N); see :func:`_resolve_backend`.
+    a JAX config carries across), ``"blocked"``, ``"nystroem"`` or ``"xla"``
+    (plain autograd objective, any N); see :func:`_resolve_backend`.
+    ``nystroem_min_n`` / ``nystroem_m``: under ``"auto"``, problems of
+    N >= nystroem_min_n (and N >= 2 nystroem_m) are fitted on the rank-
+    ``nystroem_m`` Nystrom objective; 0 disables. ``OI_NYSTROEM_MIN_N``
+    overrides the threshold, as in the JAX package.
+
+    The defaults differ from the JAX package's (``nystroem_min_n`` 1024,
+    chosen on a v5e). On an NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py``
+    objectives phase, two calls, ``PERF.md``) the rank-512 fit of 1,024
+    cells of the 1024 bucket's fine stage took 11.2-13.0 ms a cell against
+    K3's 2.3-2.4 ms, so N = 1024 stays on K3; at N = 2048 its estimated
+    15.5-25.6 ms a cell beat the blocked objective's 24.9-29.2 ms by more
+    than the 10% tie margin, with its quality held (mean float64 exact-NLL
+    cost 0.046 nats against the K3 fit, rmse vs the truth 0.04 mm above
+    it). A config with the JAX package's values still routes as the JAX
+    package routes it.
     """
 
     method: str = "lbfgs"
@@ -77,6 +104,8 @@ class OptimizeConfig:
     jitter: float = 0.0
     kind: K.Kernel = K.Kernel.MATERN32
     backend: str = "auto"
+    nystroem_min_n: int = _NYSTROEM_MIN_N
+    nystroem_m: int = 512
     restarts: int = 1
 
     def __post_init__(self):
@@ -84,6 +113,8 @@ class OptimizeConfig:
             raise ValueError(f"unknown method {self.method!r} (only 'lbfgs' is ported)")
         if self.backend not in ("auto", "xla", "fused", "pallas", "blocked", "nystroem"):
             raise ValueError(f"unknown backend {self.backend!r}")
+        if self.nystroem_m % blocked_gp.BLK != 0:
+            raise ValueError("nystroem_m must be a multiple of 128")
         if not 1 <= self.restarts <= len(_RESTART_OFFSETS):
             raise ValueError(f"restarts must be in [1, {len(_RESTART_OFFSETS)}]")
 
@@ -107,58 +138,122 @@ _MAX_STEP = 1.0
 _SEG_SCHEDULE = (1, 4)
 
 
-def _resolve_backend(config: OptimizeConfig, n: int) -> str:
-    """``"fused"`` or ``"xla"`` for a problem of N = ``n`` points.
+def blocked_min_n() -> int:
+    """Size from which ``"auto"`` prefers the blocked exact objective to K3
+    (``OI_BLOCKED_MIN_N`` overrides it, as in the JAX package). The default,
+    2049, is above K3's range: on the H100 the blocked value + gradient of
+    132 rows at N = 1024 took 24.7-25.2 ms against K3's 5.1 ms (``chip_smoke.py``
+    objectives phase, two calls), so the blocked objective takes only the
+    sizes K3 does not (the JAX package's default, 512, was measured on a
+    v5e)."""
+    return int(os.environ.get("OI_BLOCKED_MIN_N", str(_BLOCKED_MIN_N)))
 
-    ``"auto"`` takes the fused kernel K3 where ``fused_gp.supported(n)`` and
-    the plain path otherwise. That equals the JAX package's routing under
-    ``OI_BLOCKED_MIN_N=2049 OI_NYSTROEM_MIN_N=0`` (fused kernel first, exact
-    objective everywhere). The blocked and Nystrom objectives, and the sizes
-    from which ``"auto"`` prefers them, come with ROADMAP items 6-7, chosen
-    from measurements on the card."""
-    if config.backend in ("blocked", "nystroem"):
-        raise NotImplementedError(
-            f"backend {config.backend!r} is not ported yet: the blocked exact objective is "
-            "ROADMAP item 6, the Nystrom objective item 7"
-        )
+
+def routed_nystroem_m(config: OptimizeConfig, n: int) -> int:
+    """The Nystrom rank a problem of N = ``n`` points is fitted with, 0 for
+    an exact objective (``optimizer.py:178-190``): ``config.nystroem_m``
+    where the backend is ``"nystroem"``, or where it is ``"auto"`` and
+    N >= the threshold (``OI_NYSTROEM_MIN_N`` if set, else
+    ``config.nystroem_min_n``; 0 disables) and N >= 2 nystroem_m."""
+    if config.backend == "nystroem":
+        return config.nystroem_m
+    if config.backend != "auto":
+        return 0
+    env = os.environ.get("OI_NYSTROEM_MIN_N")
+    min_n = int(env) if env is not None else config.nystroem_min_n
+    if min_n and n >= min_n and n >= 2 * config.nystroem_m:
+        return config.nystroem_m
+    return 0
+
+
+def _resolve_backend(config: OptimizeConfig, n: int) -> str:
+    """``"nystroem:<M>"``, ``"blocked"``, ``"fused"`` or ``"xla"`` for a
+    problem of N = ``n`` points, in the JAX package's precedence
+    (``optimizer.py:193-216``): the Nystrom objective where
+    :func:`routed_nystroem_m` routes it, then a forced backend, then
+    ``"auto"``: the blocked objective for multiples of 128 from
+    :func:`blocked_min_n`, K3 where ``fused_gp.supported(n)``, the blocked
+    objective for larger multiples of 128, the plain path otherwise. The
+    JAX package takes this ``"auto"`` branch on the TPU in float32; the port
+    takes it on every device, where the device only decides kernel or twin
+    inside each wrapper.
+
+    The defaults follow a rule applied to measurements on the card
+    (``chip_smoke.py::_routing_rule``): the fine stage at N = 1024 is fitted
+    under each objective from one warm start; at N = 2048 and 4096 a cell's
+    fit time is estimated from the evaluations a cell made there times the
+    per-row evaluation times at that N. ``nystroem_min_n`` is the smallest
+    N in {1024, 2048, 4096} at which the Nystrom fit is faster than the
+    exact objective ``"auto"`` would use there, its quality held (rmse vs
+    the truth within 0.5 mm of the K3 fit's, mean float64 exact-NLL cost
+    <= 0.7 nats); ``blocked_min_n`` the N from which the blocked objective
+    beats K3 on value + gradient, else 2049. A tie (within 10%) goes to the
+    exact objective."""
+    m = routed_nystroem_m(config, n)
+    if m:
+        return f"nystroem:{m}"
     if config.backend in ("fused", "pallas"):
         return "fused"
-    if config.backend == "auto" and fused_gp.supported(n):
+    if config.backend != "auto":
+        return config.backend
+    if n % blocked_gp.BLK == 0 and n >= blocked_min_n():
+        return "blocked"
+    if fused_gp.supported(n):
         return "fused"
+    if n % blocked_gp.BLK == 0:
+        return "blocked"
     return "xla"
 
 
 def _batched_fns(kind: K.Kernel, jitter: float, backend: str, x, y, mask):
-    """(value_fn, value_and_grad_fn) for one batch. Each takes ``(h, rows)``:
-    ``h`` (R, 5) log-hypers for the rows ``rows`` (an index tensor) of the
-    batch, or for all of them where ``rows`` is None. Rows are independent,
-    so evaluating a subset gives those rows what the whole batch would."""
+    """(value_fn, vg_fn, pair) for one batch. ``value_fn`` and ``vg_fn``
+    take ``(h, rows)``: ``h`` (R, 5) log-hypers for the rows ``rows`` (an
+    index tensor) of the batch, or for all of them where ``rows`` is None.
+    Rows are independent, so evaluating a subset gives those rows what the
+    whole batch would.
+
+    ``pair`` is ``(value_and_factors_fn, grad_from_factors_fn)`` on the
+    blocked backend, else None: the line search carries each trial's
+    factorization, and the gradient at the accepted point reuses it instead
+    of factoring again (``optimizer.py:219-295``). K3 keeps its factor on
+    chip and cannot export one."""
     def data(rows):
         if rows is None:
             return x, y, mask
         return tuple(a.index_select(0, rows) for a in (x, y, mask))
 
+    kw = dict(kind=kind, jitter=jitter)
     if backend == "fused":
-        def value_fn(h, rows=None):
-            return fused_gp.gp_nll(h, *data(rows), kind=kind, jitter=jitter)
-
-        def vg_fn(h, rows=None):
-            return fused_gp.gp_nll_and_grad(h, *data(rows), kind=kind, jitter=jitter)
-
-        return value_fn, vg_fn
+        return (lambda h, rows=None: fused_gp.gp_nll(h, *data(rows), **kw),
+                lambda h, rows=None: fused_gp.gp_nll_and_grad(h, *data(rows), **kw), None)
+    if backend.startswith("nystroem:"):
+        mi = int(backend.split(":", 1)[1])
+        return (lambda h, rows=None: nystroem_gp.gp_nll_nystroem(h, *data(rows), mi, **kw),
+                lambda h, rows=None: nystroem_gp.gp_nll_and_grad_nystroem(h, *data(rows), mi,
+                                                                          **kw),
+                None)
+    if backend == "blocked":
+        pair = (
+            lambda h, rows=None: blocked_gp.gp_nll_blocked_with_factors(h, *data(rows), **kw),
+            lambda h, factors, rows=None: blocked_gp.gp_grad_blocked_from_factors(
+                h, *data(rows), factors, **kw),
+        )
+        return (lambda h, rows=None: blocked_gp.gp_nll_blocked(h, *data(rows), **kw),
+                lambda h, rows=None: blocked_gp.gp_nll_and_grad_blocked(h, *data(rows), **kw),
+                pair)
 
     def value_fn(h, rows=None):
-        return exact_gp.neg_log_marginal_likelihood(h, *data(rows), kind=kind, jitter=jitter)
+        return exact_gp.neg_log_marginal_likelihood(h, *data(rows), **kw)
 
     def vg_fn(h, rows=None):
         with torch.enable_grad():
             hg = h.detach().requires_grad_()
-            v = exact_gp.neg_log_marginal_likelihood(hg, *data(rows), kind=kind, jitter=jitter)
+            v = exact_gp.neg_log_marginal_likelihood(hg, *data(rows), **kw)
             # rows are independent, so the gradient of the sum is per row
             (g,) = torch.autograd.grad(v.sum(), hg)
         return v.detach(), g
 
-    return value_fn, vg_fn
+    return value_fn, vg_fn, None
 
 
 class _Knobs(NamedTuple):
@@ -292,15 +387,21 @@ def _direction(grad, s_h, y_h, rho_h, n_st):
     return -r
 
 
-def _line_search(value_fn, params, value, grad, d, live, live_rows, t_carry):
+def _line_search(value_fn, params, value, grad, d, live, live_rows, t_carry, pair=None):
     """Armijo backtracking of at most ``_LS_MAX_STEPS`` halvings, every cell
     from its own first trial step: the 1-nat norm cap, warm-started from
-    twice the last accepted step. Returns (t, value at t, Armijo holds).
+    twice the last accepted step. Returns (t, value at t, Armijo holds,
+    factors).
 
     Only the rows still searching are evaluated (the JAX package's
     ``while_loop`` evaluates every row again at its unchanged point and
     discards the value): a cell's trajectory is the same, and a chunk no
-    longer pays twelve evaluations of all its rows for one hard cell."""
+    longer pays twelve evaluations of all its rows for one hard cell.
+
+    With the blocked backend's ``pair``, ``factors`` holds the factorization
+    of each live row's current trial point, in the order of ``live_rows``:
+    each evaluation's factors are written into it at its rows' places, so
+    the gradient at the final t needs no factorization of its own."""
     gd = (grad * d).sum(dim=1)
     dnorm = torch.linalg.vector_norm(d, dim=1)
     t = torch.minimum(torch.ones_like(dnorm), _MAX_STEP / dnorm.clamp_min(1e-30))
@@ -310,9 +411,11 @@ def _line_search(value_fn, params, value, grad, d, live, live_rows, t_carry):
         return v <= value + _LS_C1 * t * gd
 
     def trial(t, rows):
-        return value_fn(_take(params + t[:, None] * d, rows), rows)
+        p = _take(params + t[:, None] * d, rows)
+        return (value_fn(p, rows), None) if pair is None else pair[0](p, rows)
 
-    v = _put(value, live_rows, trial(t, live_rows))
+    v_live, factors = trial(t, live_rows)
+    v = _put(value, live_rows, v_live)
     tries = torch.zeros_like(live, dtype=torch.int32)
     while True:
         active = (tries < _LS_MAX_STEPS) & live & ~armijo(t, v)
@@ -320,17 +423,27 @@ def _line_search(value_fn, params, value, grad, d, live, live_rows, t_carry):
         if rows is not None and rows.numel() == 0:
             break
         t = torch.where(active, t * 0.5, t)
-        v = _put(v, rows, trial(t, rows))
+        v_rows, f_rows = trial(t, rows)
+        v = _put(v, rows, v_rows)
+        if pair is not None:
+            if rows is None:
+                factors = f_rows
+            else:  # the rows' places among the live rows
+                at = rows if live_rows is None else torch.searchsorted(live_rows, rows)
+                for carried, new in zip(factors, f_rows):
+                    carried.index_copy_(0, at, new)
         tries = tries + active.to(torch.int32)
-    return t, v, armijo(t, v)
+    return t, v, armijo(t, v), factors
 
 
 @torch.no_grad()
 def _lbfgs_segment(value_fn, vg_fn, state: LbfgsState, knobs: _Knobs,
-                   seg_iters: int) -> LbfgsState:
+                   seg_iters: int, pair=None) -> LbfgsState:
     """Advance every live cell by up to ``seg_iters`` iterations
     (``optimizer.py:376-525``); the objective is evaluated for live rows
-    only. ``_lbfgs_segment.host_syncs`` counts the reads from the device."""
+    only, and with ``pair`` (blocked backend) the gradient reuses the line
+    search's factors. ``_lbfgs_segment.host_syncs`` counts the reads from
+    the device."""
     m = _LBFGS_HISTORY
     st = state
     for _ in range(seg_iters):
@@ -343,10 +456,14 @@ def _lbfgs_segment(value_fn, vg_fn, state: LbfgsState, knobs: _Knobs,
         descent = ((grad * d).sum(dim=1) < 0.0)[:, None]
         d = torch.where(descent, d, -grad)
 
-        t, new_v, ls_ok = _line_search(value_fn, params, value, grad, d, live, live_rows,
-                                       st.t_carry)
+        t, new_v, ls_ok, factors = _line_search(value_fn, params, value, grad, d, live,
+                                                live_rows, st.t_carry, pair)
         new_p = params + t[:, None] * d
-        _, g_live = vg_fn(_take(new_p, live_rows), live_rows)
+        if pair is None:
+            _, g_live = vg_fn(_take(new_p, live_rows), live_rows)
+        else:
+            g_live = pair[1](_take(new_p, live_rows), factors, live_rows)
+        del factors
         new_g = _put(grad, live_rows, g_live)
         g_ok = torch.isfinite(new_g).all(dim=1)
         accept = ls_ok & g_ok & live
@@ -418,9 +535,9 @@ def optimize_mll_batch(
     h0 = _expand_restarts(log_hypers0, r)
     if r > 1:
         x, y, mask = (a.repeat((r,) + (1,) * (a.dim() - 1)) for a in (x, y, mask))
-    value_fn, vg_fn = _batched_fns(config.kind, config.jitter, backend, x, y, mask)
+    value_fn, vg_fn, pair = _batched_fns(config.kind, config.jitter, backend, x, y, mask)
     knobs = _Knobs.of(config)
-    st = _lbfgs_segment(value_fn, vg_fn, _lbfgs_init(vg_fn, h0), knobs, config.max_iters)
+    st = _lbfgs_segment(value_fn, vg_fn, _lbfgs_init(vg_fn, h0), knobs, config.max_iters, pair)
     return _result(st, knobs, r)
 
 
@@ -493,12 +610,12 @@ def optimize_mll_chunked(
         seg = max(0, min(seg_cap, config.max_iters - iters_done))
         for s in range(0, idx.numel(), chunk_rows):
             rows = idx[s : s + chunk_rows]
-            value_fn, vg_fn = fns(rows)
+            value_fn, vg_fn, pair = fns(rows)
             if sweep == 0:
                 st = _lbfgs_init(vg_fn, h0.index_select(0, rows))
             else:
                 st = _rows(full, rows)
-            st = _lbfgs_segment(value_fn, vg_fn, st, knobs, seg)
+            st = _lbfgs_segment(value_fn, vg_fn, st, knobs, seg, pair)
             if full is None:
                 full = LbfgsState(*(
                     f.new_zeros(f.shape[:1] + (b_tot,) + f.shape[2:]) if name in _HIST_FIELDS

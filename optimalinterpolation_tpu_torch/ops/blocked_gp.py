@@ -1,20 +1,24 @@
-"""Blocked exact-GP predict for large neighborhoods (N = 2048, 4096).
+"""Blocked exact GP for large neighborhoods: the NLL objective with its
+analytic gradient, and the predict.
 
-PyTorch counterpart of the predict half of
-``optimalinterpolation_tpu/ops/blocked_gp.py``. The covariance is held as a
-block tensor (B, nb, nb, P, P) in device memory; every O(N^3) operation
-(panel solves, trailing updates, the L^-1 build of a panel) is a batched
-float32 matrix product left to ``torch.einsum``, and the only sequential
-piece, the 128x128 diagonal factor + inverse, runs through **K1**
-(``csrc/k1_factor_invert.cu``) on a CUDA tensor. Large buckets factor in
-512-wide panels whose diagonal recurses once onto the 128 base case.
+PyTorch counterpart of ``optimalinterpolation_tpu/ops/blocked_gp.py``. The
+covariance is held as a block tensor (B, nb, nb, P, P) in device memory;
+every O(N^3) operation (panel solves, trailing updates, the L^-1 build, the
+rows of A^-1) is a batched float32 matrix product left to ``torch.einsum``,
+and the only sequential piece, the 128x128 diagonal factor + inverse, runs
+through **K1** (``csrc/k1_factor_invert.cu``) on a CUDA tensor. Large
+buckets factor in 512-wide panels whose diagonal recurses once onto the 128
+base case.
 
 TF32 must stay off: at ~1e-3 relative it is the Hopper form of the TPU's
-bf16 trap in Cholesky chains; :func:`_prep` refuses a CUDA run with it on.
+bf16 trap in Cholesky chains; :func:`refuse_tf32` refuses a CUDA run with it
+on.
 
-Math and conventions are those of ``models.exact_gp.predict``:
+Math and conventions are those of ``models.exact_gp``:
 
   A = K o mm^T + diag(sf2+sn2+jitter*sf2 | 1-m),  A = L L^T
+  nll      = |L^-1 ym|^2 / 2 + sum log diag L + n/2 log 2pi
+  d nll/dθ = 0.5 <A^-1 - alpha alpha^T, dA/dθ>
   fs = m + (L^-1 ks).(L^-1 ym),  var = sf2 - |L^-1 ks|^2
 """
 
@@ -29,7 +33,10 @@ from optimalinterpolation_tpu_torch.ops import _cuda
 from optimalinterpolation_tpu_torch.ops import kernels as K
 from optimalinterpolation_tpu_torch.ops.kernels import Kernel
 
-__all__ = ["BLK", "PANEL", "gp_predict_blocked"]
+__all__ = [
+    "BLK", "PANEL", "refuse_tf32", "gp_nll_blocked", "gp_nll_blocked_with_factors",
+    "gp_grad_blocked_from_factors", "gp_nll_and_grad_blocked", "gp_predict_blocked",
+]
 
 BLK = 128
 PANEL = 512
@@ -161,6 +168,18 @@ def _fwd_solve(l, w, rhs):
     return z
 
 
+def _bwd_solve(l, w, rhs):
+    """alpha = L^-T rhs with rhs (B, nb, P, R); returns the same shape."""
+    nb = l.shape[1]
+    out = torch.zeros_like(rhs)
+    for ib in range(nb - 1, -1, -1):
+        acc = rhs[:, ib]
+        if ib + 1 < nb:
+            acc = acc - torch.einsum("bkyx,bkyr->bxr", l[:, ib + 1 :, ib], out[:, ib + 1 :])
+        out[:, ib] = torch.einsum("byx,byr->bxr", w[:, ib], acc)
+    return out
+
+
 def _tinv(l, w):
     """T = L^-1 as a block tensor (B, nb, nb, P, P), lower-triangular."""
     nb = l.shape[1]
@@ -179,17 +198,23 @@ def _panel_size(n: int) -> int:
     return PANEL if (n % PANEL == 0 and n >= 2048) else BLK
 
 
-def _prep(log_hypers, x, mask, kind, jitter):
-    """Build A and factor it; returns (l, w, logdet, ok, sf2). A itself is
-    dropped: predict needs only the factor."""
-    n = x.shape[1]
-    if n % BLK != 0:
-        raise ValueError(f"N must be a multiple of {BLK}, got {n}")
+def refuse_tf32(x: torch.Tensor) -> None:
+    """Raise on a CUDA tensor while TF32 matmuls are on: the blocked
+    Cholesky and everything built on it need full float32 products."""
     if x.device.type == "cuda" and (
         torch.backends.cuda.matmul.allow_tf32
         or torch.get_float32_matmul_precision() != "highest"
     ):
         raise RuntimeError("TF32 matmuls are on: the blocked Cholesky needs full float32")
+
+
+def _prep(log_hypers, x, mask, kind, jitter):
+    """Build A and factor it; returns (l, w, logdet, ok, sf2). A itself is
+    dropped: the callers need only the factor."""
+    n = x.shape[1]
+    if n % BLK != 0:
+        raise ValueError(f"N must be a multiple of {BLK}, got {n}")
+    refuse_tf32(x)
     a, sf2 = _build_a(log_hypers, x, mask, kind, jitter)
     l, w, logdet, ok = _blocked_chol(_to_blocks(a, _panel_size(n)))
     return l, w, logdet, ok, sf2
@@ -198,6 +223,97 @@ def _prep(log_hypers, x, mask, kind, jitter):
 def _as_block_vec(v: torch.Tensor, blk: int = BLK) -> torch.Tensor:
     b, n = v.shape
     return v.reshape(b, n // blk, blk, 1)
+
+
+# ---------------------------------------------------------------------------
+# The NLL objective and its analytic gradient
+# ---------------------------------------------------------------------------
+
+
+def gp_nll_blocked(log_hypers, x, y, mask, kind: Kernel = Kernel.MATERN32,
+                   jitter: float = 0.0) -> torch.Tensor:
+    """Batched masked NLL (B,), blocked path; ``y`` centered. The value half
+    of :func:`gp_nll_blocked_with_factors`."""
+    return gp_nll_blocked_with_factors(log_hypers, x, y, mask, kind=kind, jitter=jitter)[0]
+
+
+def gp_nll_blocked_with_factors(log_hypers, x, y, mask, kind: Kernel = Kernel.MATERN32,
+                                jitter: float = 0.0):
+    """Batched masked NLL (B,), ``+inf`` where the factor fails, and its
+    factorization ``(l, w, z, ok)``: the blocked Cholesky, the diagonal
+    blocks' inverses, z = L^-1 (y m) and the flags. A caller that needs the
+    gradient at the same point passes them to
+    :func:`gp_grad_blocked_from_factors` instead of factoring again (the
+    optimizer's line search, whose last evaluation is at the accepted
+    iterate)."""
+    m = mask.to(x.dtype)
+    l, w, logdet, ok, _ = _prep(log_hypers, x, mask, kind, jitter)
+    z = _fwd_solve(l, w, _as_block_vec(y * m, l.shape[-1]))
+    nll = 0.5 * (z * z).sum(dim=(1, 2, 3)) + logdet + 0.5 * m.sum(dim=1) * _LOG2PI
+    return torch.where(ok, nll, math.inf), (l, w, z, ok)
+
+
+def gp_grad_blocked_from_factors(log_hypers, x, y, mask, factors,
+                                 kind: Kernel = Kernel.MATERN32, jitter: float = 0.0):
+    """Analytic (B, 5) NLL gradient, NaN where the factor failed, from the
+    ``factors`` of :func:`gp_nll_blocked_with_factors` at the same
+    ``log_hypers``: nothing is built or factored again.
+
+    A^-1 = T^T T with T = L^-1 block-lower-triangular, and both
+    Q = A^-1 - alpha alpha^T and every dA/dθ are symmetric, so
+    <Q, dA/dθ> needs only Q's lower block triangle. It is formed one
+    128-block row at a time and contracted against the kernel derivatives
+    at once: nothing (N, N)-sized beyond L and T is held. A 512-panel T is
+    re-blocked at 128 (it is lower-triangular elementwise), which keeps the
+    row's (B, i+1, 128, 128, 3) displacements small."""
+    b, n, _ = x.shape
+    nb = n // BLK
+    m = mask.to(x.dtype)
+    l, w, z, ok = factors
+    sf2 = torch.exp(log_hypers[:, 3])
+    sn2 = torch.exp(log_hypers[:, 4])
+    alpha = _bwd_solve(l, w, z).reshape(b, nb, BLK)
+    t = _tinv(l, w)
+    if l.shape[-1] != BLK:
+        t = _to_blocks(_unblock(t), BLK)
+    qxb = (x / torch.exp(log_hypers[:, None, :3])).reshape(b, nb, BLK, 3)
+    mb = m.reshape(b, nb, BLK)
+    g_ell = x.new_zeros((b, 3))
+    gs = x.new_zeros(b)
+    qdiag = x.new_zeros(b)
+    sf2_4 = sf2[:, None, None, None]
+    for i in range(nb):
+        # block row i of A^-1 left of the diagonal: (B, i+1, 128, 128),
+        # axes (batch, column block j, row point, column point)
+        row = torch.einsum("bkxy,bkjxz->bjyz", t[:, i:, i], t[:, i:, : i + 1])
+        qrow = row - alpha[:, i][:, None, :, None] * alpha[:, : i + 1][:, :, None, :]
+        # off-diagonal blocks twice (symmetry), the diagonal block once
+        qrow[:, :i] *= 2.0
+        qm = qrow * (mb[:, i][:, None, :, None] * mb[:, : i + 1][:, :, None, :])
+        dd = qxb[:, i][:, None, :, None, :] - qxb[:, : i + 1][:, :, None, :, :]
+        dd2 = dd * dd
+        d2 = dd2.sum(dim=-1)
+        qmw = qm * (sf2_4 * K._dlogell_weight(kind, d2))
+        g_ell = g_ell + torch.einsum("bjxz,bjxzd->bd", qmw, dd2)
+        gs = gs + (qm * (sf2_4 * K._shape_fn(kind, d2))).sum(dim=(1, 2, 3))
+        qdiag = qdiag + (qrow[:, i].diagonal(dim1=-2, dim2=-1) * mb[:, i]).sum(dim=-1)
+    gs = gs + jitter * sf2 * qdiag
+    grad = 0.5 * torch.cat([g_ell, gs[:, None], (sn2 * qdiag)[:, None]], dim=1)
+    return torch.where(ok[:, None], grad, math.nan)
+
+
+def gp_nll_and_grad_blocked(log_hypers, x, y, mask, kind: Kernel = Kernel.MATERN32,
+                            jitter: float = 0.0):
+    """Batched masked NLL (B,) and analytic (B, 5) gradient, blocked path:
+    one factorization serves both."""
+    nll, factors = gp_nll_blocked_with_factors(log_hypers, x, y, mask, kind=kind, jitter=jitter)
+    return nll, gp_grad_blocked_from_factors(log_hypers, x, y, mask, factors, kind=kind,
+                                             jitter=jitter)
+
+
+# ---------------------------------------------------------------------------
+# Predict
+# ---------------------------------------------------------------------------
 
 
 def gp_predict_blocked(

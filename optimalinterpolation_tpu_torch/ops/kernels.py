@@ -146,8 +146,18 @@ def cross_kernel(
 ) -> torch.Tensor:
     """Cross-covariance K(x, x*), shape (..., n, m); rows of padded points
     are zero. Parity target: ``SGPkernel(x, xs=xs, ...)``
-    (``GPR_CS2S3.py:100-101``)."""
+    (``GPR_CS2S3.py:100-101``). Out of place, as :func:`kernel_matrix`,
+    where an input requires a gradient (the Nystrom objective's K_nm, whose
+    landmarks are training points: zero distances)."""
     e = ell[..., None, :]
+    sf2 = torch.as_tensor(sf2)
+    if torch.is_grad_enabled() and (x.requires_grad or ell.requires_grad or sf2.requires_grad):
+        xs, ss = x / e, xstar / e
+        d2 = sum(
+            (xs[..., :, None, k] - ss[..., None, :, k]).square() for k in range(x.shape[-1])
+        )
+        k = sf2[..., None, None] * _shape_fn_autograd(kind, d2)
+        return k if mask is None else k * mask.to(k.dtype)[..., :, None]
     k = _shape_fn(kind, _sqdist(x / e, xstar / e))
-    k.mul_(torch.as_tensor(sf2)[..., None, None])
+    k.mul_(sf2[..., None, None])
     return _masked(k, mask, cols=False)

@@ -13,7 +13,8 @@ and, with ``precomputed_hypers``, its quicklook scheme ``GPR3D(opt=False)``
 
 Cells are gathered into fixed-size neighborhood buckets (``data.neighbors``).
 The fit of a bucket is one lockstep L-BFGS over all its cells
-(``models.optimizer.optimize_mll_chunked``, objective K3), warm-started from
+(``models.optimizer.optimize_mll_chunked``; objective K3, or the blocked
+or Nystrom objective where ``OptimizeConfig`` routes it), warm-started from
 a sublattice of seed cells and through a cascade of growing subsamples; the
 bucket's arrays and the L-BFGS state stay on the device from the first stage
 to the last. Each predict runs in chunks of one fixed tile size through
@@ -49,6 +50,7 @@ from optimalinterpolation_tpu_torch.models.optimizer import (
     OptimizeConfig,
     _resolve_backend,
     optimize_mll_chunked,
+    routed_nystroem_m,
 )
 from optimalinterpolation_tpu_torch.ops import fused_gp
 from optimalinterpolation_tpu_torch.ops.kernels import Kernel
@@ -60,12 +62,32 @@ HYPER_NAMES = ("ell_x", "ell_y", "ell_t", "sf2", "sn2")
 
 logger = logging.getLogger(__name__)
 
-# Live (N, N) buffers per cell of the blocked path: A and its factor, plus
+# Live (N, N) buffers per cell of the blocked predict: A and its factor, plus
 # the block products' temporaries.
 _BLOCKED_BUFFERS = 2.5
+# Live (N, N) buffers per cell of the blocked objective with its gradient
+# (ops/blocked_gp.py), counted from the code: the line search carries each
+# live row's factor L (1) while the next trial builds A (the kernel build's
+# d2, r, -r and exp: 4 at its peak) and factors it (A and L); the gradient
+# holds L, T = L^-1 and, at 512-wide panels, T re-blocked at 128 (3), plus
+# the einsums' copies. Measured on an H100 (chip_smoke.py objectives phase,
+# 16 rows, carried factors alive through the next trial and the gradient):
+# 5.13 at N = 1024, 5.25 at N = 2048.
+_BLOCKED_OBJECTIVE_BUFFERS = 6.0
+# Live buffers per cell of the Nystrom objective with its autograd gradient
+# (ops/nystroem_gp.py), counted from the code, in (N, M) arrays: what
+# autograd keeps of the K_nm build (the three per-dimension differences, the
+# square root, the exponential, 1 + r and the shape function, 7) plus K_nm
+# and Phi, and the backward pass's gradients of them (3); in (M, M) arrays:
+# the same of the K_mm build, both factorizations' L and W, core and the
+# backward's products. Measured on an H100 (chip_smoke.py objectives phase,
+# value + gradient of 16 rows at N = 1024 and 4096, M = 512): 11.4 (N, M)
+# and 17.1 (M, M) buffers.
+_NYSTROEM_NM_BUFFERS = 12
+_NYSTROEM_MM_BUFFERS = 20
 # Live (N, N) buffers per cell of the plain autograd objective (K, A, L, the
 # solves and what autograd keeps for the backward pass): a count from the
-# code, for sizes K3 does not take; not measured on the card.
+# code, for the objective that ``"xla"`` forces; not measured on the card.
 _AUTOGRAD_BUFFERS = 10
 
 
@@ -114,10 +136,10 @@ class DailyConfig:
     # NLL and gradient only), so cells converged at their start leave before
     # any line search.
     fine_entry_drain: bool = True
-    # Device bytes one chunk of cells may hold in (N, N)-sized working
-    # memory: K2's or K3's scratch per cell, _BLOCKED_BUFFERS (N, N) buffers
-    # on the blocked path. 16 GB leaves the rest of an 80 GB card to the
-    # kernel-matrix build's temporaries and the allocator.
+    # Device bytes one chunk of cells may hold in working memory: K2's or
+    # K3's scratch per cell, or the blocked and Nystrom paths' buffers
+    # (_chunk_rows). 16 GB leaves the rest of an 80 GB card to the
+    # allocator.
     max_chunk_bytes: float = 16e9
     # Smoothing (reference: std = 2 at 25 km else 1, GPR_CS2S3.py:299-302;
     # clip vmaxes :303-307: ell_t T, sf2 0.1, sn2 0.05, ell_xy 2 * radius)
@@ -215,24 +237,30 @@ def _prior_rows(prior_cells, fill, cell_index, dtype):
 
 
 def _chunk_rows(capacity: int, n_rows: int, cfg: DailyConfig, itemsize: int,
-                optimize: bool = False) -> int:
+                backend: Optional[str] = None) -> int:
     """One launch tile per bucket: the fewest chunks the byte budget allows
     (at least ``batch_multiple`` rows), split evenly, in multiples of
-    ``batch_multiple``. ``optimize`` sizes for the objective with its
-    gradient: K3's two (N, N) scratches and its (N, 128) one per cell, or the
-    plain autograd path's buffers where K3 does not take N."""
+    ``batch_multiple``. ``backend`` (as ``optimizer._resolve_backend`` names
+    it) sizes for that objective with its gradient: K3's two (N, N)
+    scratches and its (N, 128) one per cell, or the buffers of the blocked,
+    Nystrom or plain autograd objective; None sizes for the predict."""
     n2 = capacity * capacity
-    if optimize:
+    if backend is None:
         if fused_gp.supported(capacity):
-            per_row = (2 * n2 + capacity * fused_gp.BLK) * itemsize
+            per_row = n2 + capacity * fused_gp.BLK
         else:
-            per_row = _AUTOGRAD_BUFFERS * n2 * itemsize
-    elif fused_gp.supported(capacity):
-        per_row = (n2 + capacity * fused_gp.BLK) * itemsize
+            per_row = _BLOCKED_BUFFERS * n2
+    elif backend == "fused":
+        per_row = 2 * n2 + capacity * fused_gp.BLK
+    elif backend == "blocked":
+        per_row = _BLOCKED_OBJECTIVE_BUFFERS * n2
+    elif backend.startswith("nystroem:"):
+        mi = int(backend.split(":", 1)[1])
+        per_row = _NYSTROEM_NM_BUFFERS * capacity * mi + _NYSTROEM_MM_BUFFERS * mi * mi
     else:
-        per_row = _BLOCKED_BUFFERS * n2 * itemsize
+        per_row = _AUTOGRAD_BUFFERS * n2
     bm = cfg.batch_multiple
-    cap = max(bm, int(cfg.max_chunk_bytes // per_row) // bm * bm)
+    cap = max(bm, int(cfg.max_chunk_bytes // (per_row * itemsize)) // bm * bm)
     n_chunks = -(-n_rows // cap)
     tile = -(-n_rows // n_chunks)
     return -(-tile // bm) * bm
@@ -308,6 +336,16 @@ def _stage(stats: Optional[list], stage: str, n: int, cells: int, t0: float,
     logger.info("stage %s", entry)
 
 
+def _objective(backend: str) -> dict:
+    """A stage entry's objective fields: ``backend`` (``"fused"``,
+    ``"blocked"``, ``"nystroem"`` or ``"xla"``) and, where the Nystrom
+    objective ran, its rank ``m`` (the JAX package's stage entries carry
+    ``m`` alone)."""
+    if backend.startswith("nystroem:"):
+        return {"backend": "nystroem", "m": int(backend.split(":", 1)[1])}
+    return {"backend": backend}
+
+
 def _optimize_bucket(
     full_b: NeighborhoodBatch,
     x0: np.ndarray,
@@ -354,7 +392,9 @@ def _optimize_bucket(
     # this cell's data before the full problem.
     ws_n = cfg.warmstart_n_seeded if seed_init and cfg.warmstart_n_seeded else cfg.warmstart_n
     use_cascade = bool((not chained or seed_init) and ws_n and cap > ws_n)
-    if cap < full_b.capacity or use_cascade:  # a prefix will be taken
+    # A prefix will be taken, or the Nystrom objective's landmarks (the first
+    # M slots) must be a uniform subsample.
+    if cap < full_b.capacity or use_cascade or routed_nystroem_m(opt_cfg, cap):
         _permute_valid_points(full_b)
 
     # The bucket goes to the device once, centered, and stays there.
@@ -381,8 +421,9 @@ def _optimize_bucket(
             if rows.numel() < len(full_b):
                 sx, sy, sm = (a.index_select(0, rows) for a in (sx, sy, sm))
             h_stage = h_d.index_select(0, rows)
+            stage_backend = _resolve_backend(stage_cfg, n_sub)
             wchunk = _chunk_rows(n_sub, stage_cfg.restarts * rows.numel(), cfg,
-                                 dtype.itemsize, optimize=True)
+                                 dtype.itemsize, stage_backend)
             pre = optimize_mll_chunked(
                 h_stage, sx, sy, sm, stage_cfg, chunk_rows=wchunk,
                 segment_iters=cfg.opt_segment_iters,
@@ -393,13 +434,15 @@ def _optimize_bucket(
             h_d[rows] = pre.log_hypers
             stage_cfg = dataclasses.replace(opt_cfg, restarts=1, ftol_abs=stage_ftol)
             _stage(stats, prefix + "cascade", n_sub, int(rows.numel()), t_stage,
-                   int(pre.iters.sum()), converged=int(pre.converged.sum()))
+                   int(pre.iters.sum()), converged=int(pre.converged.sum()),
+                   **_objective(stage_backend))
             n_sub *= 2
         fine_cfg = dataclasses.replace(stage_cfg, ftol_abs=opt_cfg.ftol_abs)
 
     t_opt = time.perf_counter()
     fx, fy, fm = _prefix_subset(x_d, y_d, m_d, cap)
-    chunk = _chunk_rows(cap, fine_cfg.restarts * len(full_b), cfg, dtype.itemsize, optimize=True)
+    fine_backend = _resolve_backend(fine_cfg, cap)
+    chunk = _chunk_rows(cap, fine_cfg.restarts * len(full_b), cfg, dtype.itemsize, fine_backend)
     # Warm entries (chained, seeded or cascade output) start with the
     # zero-iteration verify sweep; from a cold x0 nothing is converged yet.
     warm_entry = (chained or use_cascade) and cfg.fine_entry_drain
@@ -409,8 +452,7 @@ def _optimize_bucket(
     )
     lh_all = opt_all.log_hypers.cpu().numpy()
     _stage(stats, prefix + "opt", cap, len(full_b), t_opt, int(opt_all.iters.sum()),
-           converged=int(opt_all.converged.sum()),
-           backend=_resolve_backend(fine_cfg, cap))
+           converged=int(opt_all.converged.sum()), **_objective(fine_backend))
     return lh_all
 
 

@@ -1,4 +1,4 @@
-"""Port ``ops/blocked_gp.py`` (predict half, K1's wrapper) against JAX, float64.
+"""Port ``ops/blocked_gp.py`` (objective, predict, K1's wrapper) against JAX, float64.
 
 On the CPU the K1 wrapper runs its plain twin, which mirrors the JAX
 package's off-TPU reference ``_factor_invert_xla``; K1 itself is held against
@@ -102,3 +102,40 @@ def test_nan_hypers_give_nan_cell():
     assert got.ok.tolist() == [True, False]
     assert torch.isnan(torch.stack([got.mean[1], got.std[1], got.lZ[1]])).all()
     assert torch.isfinite(torch.stack([got.mean[0], got.std[0], got.lZ[0]])).all()
+
+
+@pytest.mark.parametrize("n, rtol, atol", [(384, 1e-12, 1e-10), (2048, 1e-11, 1e-9)],
+                         ids=["n384_3_blocks", "n2048_512_panels"])
+def test_gp_nll_and_grad_blocked_matches_jax(n, rtol, atol):
+    """Value, analytic gradient and the factor-reuse split against JAX's
+    ``gp_nll_and_grad_blocked`` (tests/test_pallas_gp.py's tolerances): three
+    128 blocks, and 512-wide panels whose T is re-blocked at 128."""
+    h, x, y, _, mask, _ = _problem(3, b=2 if n < 1024 else 1, n=n)
+    args_j, args_t = map(jnp.asarray, (h, x, y, mask)), list(map(torch.from_numpy, (h, x, y, mask)))
+    jv, jg = JB.gp_nll_and_grad_blocked(*args_j, jitter=1e-6)
+    tv, tg = TB.gp_nll_and_grad_blocked(*args_t, jitter=1e-6)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=rtol, atol=0)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=atol, rtol=0)
+    assert torch.equal(TB.gp_nll_blocked(*args_t, jitter=1e-6), tv)
+    nf, factors = TB.gp_nll_blocked_with_factors(*args_t, jitter=1e-6)
+    assert torch.equal(nf, tv)
+    assert torch.equal(TB.gp_grad_blocked_from_factors(*args_t, factors, jitter=1e-6), tg)
+
+
+def test_gp_nll_blocked_failed_factor_is_inf_and_nan():
+    h, x, y, _, mask, _ = _problem(4, b=2, n=256)
+    h[0] = np.nan
+    v, g = TB.gp_nll_and_grad_blocked(*map(torch.from_numpy, (h, x, y, mask)), jitter=1e-6)
+    assert torch.isinf(v[0]) and v[0] > 0 and torch.isnan(g[0]).all()
+    assert torch.isfinite(v[1]) and torch.isfinite(g[1]).all()
+
+
+@pytest.mark.parametrize("kind", ["matern12", "matern52", "se"])
+def test_gp_grad_blocked_other_kernels_match_jax(kind):
+    h, x, y, _, mask, _ = _problem(5, b=2, n=256)
+    jv, jg = JB.gp_nll_and_grad_blocked(*map(jnp.asarray, (h, x, y, mask)),
+                                        kind=JB.Kernel(kind), jitter=1e-6)
+    tv, tg = TB.gp_nll_and_grad_blocked(*map(torch.from_numpy, (h, x, y, mask)),
+                                        kind=TB.Kernel(kind), jitter=1e-6)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-12)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=1e-10, rtol=0)

@@ -1,4 +1,5 @@
-"""K1, K2 and K3 on the card against their plain twins (marker ``cuda``).
+"""K1, K2 and K3 on the card against their plain twins, and the blocked and
+Nystrom objectives built on K1 against float64 (marker ``cuda``).
 
 These tests need an NVIDIA card and ``nvcc``; without them they skip. They
 import no JAX, so on the card they run without the suite's conftest:
@@ -13,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from optimalinterpolation_tpu_torch.ops import blocked_gp, fused_gp
+from optimalinterpolation_tpu_torch.ops import blocked_gp, fused_gp, nystroem_gp
 from optimalinterpolation_tpu_torch.ops.kernels import Kernel
 
 pytestmark = pytest.mark.cuda
@@ -295,3 +296,89 @@ def test_k3_ill_conditioned_matern_cell(card):
     for got, want, t32 in ((r.mean, ref.mean, twin.mean), (r.std, ref.std, twin.std)):
         dev32 = (t32.double() - want).abs().max().item()
         assert (got.double() - want).abs().max().item() <= max(1e-4, 4.0 * dev32)
+
+
+def _objective_problem(rng, b, n):
+    """tests/test_nystroem_backend.py's distribution: smooth targets, valid
+    points first, 90% of the slots valid, hypers near the generating ones."""
+    x = rng.uniform(-3e5, 3e5, size=(b, n, 3))
+    x[..., 2] = rng.uniform(0, 9, size=(b, n))
+    mask = np.zeros((b, n))
+    mask[:, : int(0.9 * n)] = 1.0
+    y = (0.1 * np.sin(x[..., 0] / 1.5e5) + 0.05 * np.cos(x[..., 1] / 1.2e5)
+         + 0.03 * rng.standard_normal((b, n)))
+    h = np.tile(np.log([2.0e5, 2.0e5, 2.0, 0.02, 0.002]), (b, 1))
+    h += 0.1 * rng.standard_normal((b, 5))
+    return h, x, y, mask
+
+
+_OBJECTIVES = {
+    "blocked": blocked_gp.gp_nll_and_grad_blocked,
+    "nystroem": lambda *a, **kw: nystroem_gp.gp_nll_and_grad_nystroem(*a, 512, **kw),
+}
+
+
+@pytest.mark.parametrize("name, n", [("blocked", 1024), ("blocked", 2048),
+                                     ("nystroem", 1024), ("nystroem", 2048)])
+def test_objective_float32_on_card_matches_float64(card, name, n):
+    """Value within 1e-5 relative and gradient within 1e-3 relative in norm
+    of the same function in float64 on the CPU, on the float32-rounded
+    inputs; K1 launched (the blocked path: one launch a diagonal block;
+    Nystrom: 4 a chol_inv, twice)."""
+    args32 = [torch.tensor(a, dtype=torch.float32, device=card)
+              for a in _objective_problem(np.random.default_rng(n), 3, n)]
+    fn = _OBJECTIVES[name]
+    before = blocked_gp._factor_invert.launches
+    v, g = fn(*args32, jitter=1e-6)
+    torch.cuda.synchronize()
+    want = n // 128 if name == "blocked" else 8
+    assert blocked_gp._factor_invert.launches == before + want
+    v64, g64 = fn(*[a.cpu().double() for a in args32], jitter=1e-6)
+    assert bool(torch.isfinite(v64).all())
+    dv = ((v.cpu().double() - v64).abs() / v64.abs()).max().item()
+    dg = (torch.linalg.vector_norm(g.cpu().double() - g64, dim=1)
+          / torch.linalg.vector_norm(g64, dim=1)).max().item()
+    assert dv <= 1e-5, dv
+    assert dg <= 1e-3, dg
+
+
+def test_chol_inv_on_card_launches_k1_not_the_library(card, monkeypatch):
+    """Forward and backward of chol_inv at M = 512 on the card: 4 K1
+    launches, no library Cholesky (torch.linalg.cholesky_ex raises here),
+    and the gradient of the float64 CPU run to 1e-3 relative."""
+    def refuse(*a, **kw):
+        raise AssertionError("a library Cholesky ran on the card")
+
+    rng = np.random.default_rng(9)
+    g0 = rng.standard_normal((2, 512, 512)) / np.sqrt(512)
+    a = g0 @ g0.transpose(0, 2, 1) + np.eye(512)
+    c = rng.standard_normal((2, 512, 512))
+    monkeypatch.setattr(torch.linalg, "cholesky_ex", refuse)
+    monkeypatch.setattr(torch.linalg, "cholesky", refuse)
+    grads = []
+    for dev, dt in ((card, torch.float32), ("cpu", torch.float64)):
+        at = torch.tensor(a, dtype=dt, device=dev, requires_grad=True)
+        before = blocked_gp._factor_invert.launches
+        if dev == "cpu":  # the plain twin needs the library on the CPU
+            monkeypatch.undo()
+        l, w, logdet, ok = nystroem_gp.chol_inv(at)
+        loss = (torch.tensor(c, dtype=dt, device=dev) * w).sum() + logdet.sum()
+        (g,) = torch.autograd.grad(loss, at)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert blocked_gp._factor_invert.launches == before + 4 and bool(ok.all())
+        grads.append(g.cpu().double())
+    err = (grads[0] - grads[1]).norm() / grads[1].norm()
+    assert err.item() <= 1e-3, err.item()
+
+
+@pytest.mark.parametrize("name", list(_OBJECTIVES))
+def test_objectives_refuse_tf32(card, name):
+    args = [torch.tensor(a, dtype=torch.float32, device=card)
+            for a in _objective_problem(np.random.default_rng(1), 1, 1024)]
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="TF32"):
+            _OBJECTIVES[name](*args, jitter=1e-6)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False

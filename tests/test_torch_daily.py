@@ -116,20 +116,31 @@ def test_chunk_rows_optimize_model():
     cfg = TD.DailyConfig(max_chunk_bytes=16e9)
     # K3 with the gradient, (2 N^2 + 128 N) * 4 bytes a row: 1,797 rows fit at
     # N = 1024, so 8,936 rows go in 5 tiles of 1,792
-    assert TD._chunk_rows(1024, 8936, cfg, 4, optimize=True) == 1792
-    assert TD._chunk_rows(512, 1256, cfg, 4, optimize=True) == 1256
-    # sizes K3 does not take count the autograd path's buffers
-    assert TD._chunk_rows(64, 56, cfg, 8, optimize=True) == 56
-    assert TD._chunk_rows(2048, 4000, cfg, 4, optimize=True) == 88
+    assert TD._chunk_rows(1024, 8936, cfg, 4, "fused") == 1792
+    assert TD._chunk_rows(512, 1256, cfg, 4, "fused") == 1256
+    # the plain autograd objective's buffers
+    assert TD._chunk_rows(64, 56, cfg, 8, "xla") == 56
+    # the blocked objective, _BLOCKED_OBJECTIVE_BUFFERS (N, N) a row
+    rows = int(16e9 // (TD._BLOCKED_OBJECTIVE_BUFFERS * 2048 ** 2 * 4)) // 8 * 8
+    assert TD._chunk_rows(2048, 4000, cfg, 4, "blocked") == -(-4000 // -(-4000 // rows) // 8) * 8
+    assert TD._chunk_rows(2048, 8, cfg, 4, "blocked") == 8
+    # the Nystrom objective: (N, M) and (M, M) buffers, no (N, N) one
+    per_row = (TD._NYSTROEM_NM_BUFFERS * 4096 * 512 + TD._NYSTROEM_MM_BUFFERS * 512 ** 2) * 4
+    assert TD._chunk_rows(4096, 100000, cfg, 4, "nystroem:512") <= 16e9 // per_row
+    assert TD._chunk_rows(4096, 100000, cfg, 4, "nystroem:512") > 16e9 // per_row - 8
 
 
 def test_requires_hypers_until_pass1_is_ported():
-    """Pass 1 is ported: without hypers the call now starts the fit. What
-    still raises is an objective that is not ported, at the first bucket."""
-    cfg = TD.DailyConfig(dtype="float64", buckets=(128,),
-                         opt=TO.OptimizeConfig(backend="blocked"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        TD.interpolate_daily(make_tiny_dataset(), 0, 0.2, cfg, device="cpu")
+    """Pass 1 is ported, and so is every objective: ``backend="blocked"``
+    runs the day through the blocked objective (K1's twin here), which the
+    opt stage reports."""
+    cfg = TD.DailyConfig(dtype="float64", buckets=(128,), spatial_seed_stride=0,
+                         opt=TO.OptimizeConfig(backend="blocked", max_iters=3))
+    stats = []
+    res = TD.interpolate_daily(make_tiny_dataset(), 0, 0.2, cfg, stats=stats, device="cpu")
+    opt = [e for e in stats if e["stage"] == "opt"]
+    assert [e["backend"] for e in opt] == ["blocked"] and "m" not in opt[0]
+    assert np.isfinite(res.interp_smth[np.isfinite(res.interp_smth)]).any()
 
 
 _SEEDED = dict(spatial_seed_stride=2, seed_opt_n=32, warmstart_n_seeded=32, warmstart_n=64,
