@@ -61,6 +61,21 @@ phase:
              exact-NLL cost and exact-prediction deviations against the K3
              fit, rmse vs the truth), K1 launched and K3 not by the new ones;
              and the thresholds ``"auto"``'s rule gives, beside the defaults.
+  9. season  ``pipeline.season.run_season`` on a second synthetic season (the
+             same parameters, 12 days: windows 0-3) in strided waves of two
+             days: wave 0 windows 0 and 2, cold and spatially seeded; wave 1
+             windows 1 and 3, each started from its predecessor's fit. Per
+             wave: cells, wall (first gather to last pickle), cells/s, the
+             stage entries, launches, K3 value launches by rows, host
+             synchronisations, peak memory, and the host seconds outside
+             the stages (gather, window, nearest fill, pickle). Fails unless
+             every pickle has 15 keys with every active cell finite, 64
+             cells of each bucket of each day are within 1e-4 m of the
+             float64 twin at the pickle's smoothed hypers, every day meets
+             the fit phase's optimum gates on the rows its wave fitted, K1, K2 and both K3 variants
+             ran, the chained wave ran no seed pass and no cascade, and a
+             second call on the same directory resumes all four days with
+             no launch at all. rmse vs the truth per day.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -500,7 +515,6 @@ def _run_daily(tmp: str, extra_argv: list):
     from optimalinterpolation_tpu_torch import cli
     from optimalinterpolation_tpu_torch.io.pickles import load_pickle
     from optimalinterpolation_tpu_torch.models import optimizer
-    from optimalinterpolation_tpu_torch.ops import blocked_gp, fused_gp
 
     handler = _DailyLog()
     log = logging.getLogger("optimalinterpolation_tpu_torch.pipeline.daily")
@@ -508,19 +522,14 @@ def _run_daily(tmp: str, extra_argv: list):
     log.setLevel(logging.INFO)
     argv = ["daily", "--datapath", tmp, "--grid-res", str(RES_KM), "--day", str(DAY),
             "--prior-mean", str(PRIOR), "--outdir", tmp, *extra_argv]
-    counted = {"K1": blocked_gp._factor_invert, "K2": fused_gp.gp_predict,
-               "K3 value": fused_gp.gp_nll, "K3 grad": fused_gp.gp_nll_and_grad}
-    for fn in counted.values():
-        fn.launches = 0
-    fused_gp.gp_nll.rows.clear()
-    optimizer._lbfgs_segment.host_syncs = 0
+    _zero_counts()
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counted.items()}
+    launches = _counts()
     log.removeHandler(handler)
     line = json.loads(out.getvalue().strip().splitlines()[-1])
     res = load_pickle(line["output"])
@@ -530,10 +539,11 @@ def _run_daily(tmp: str, extra_argv: list):
 
 
 class _Day:
-    """The synthetic day's truth, active cells and neighborhood buckets,
-    gathered once for the checks of both daily phases."""
+    """A synthetic day's truth, active cells and neighborhood buckets,
+    gathered once for the checks of a phase: window ``day`` of the season
+    in ``tmp``."""
 
-    def __init__(self, tmp: str):
+    def __init__(self, tmp: str, day: int = DAY):
         from optimalinterpolation_tpu_torch.data.neighbors import gather_neighborhoods
         from optimalinterpolation_tpu_torch.data.reader import read_freeboard_season
         from optimalinterpolation_tpu_torch.data.window import flatten_window
@@ -541,11 +551,12 @@ class _Day:
 
         self.cfg = cfg = DailyConfig()
         ds = read_freeboard_season(tmp, RES_KM, "2018-2019")
-        self.active = np.isfinite(ds.sie[:, :, DAY + cfg.t_mid])
+        self.date = ds.dates[day + cfg.t_mid]
+        self.active = np.isfinite(ds.sie[:, :, day + cfg.t_mid])
         self.active_ij = np.nonzero(self.active)
         fyi = np.load(os.path.join(tmp, f"CS2_FYI_synthetic_{RES_KM}km.npy"))
-        self.truth = fyi[:, :, DAY + cfg.t_mid] + 0.02  # the FYI file is truth - 0.02 m
-        train = flatten_window(ds.obs[:, :, :, DAY:DAY + cfg.window_days], ds.x, ds.y)
+        self.truth = fyi[:, :, day + cfg.t_mid] + 0.02  # the FYI file is truth - 0.02 m
+        train = flatten_window(ds.obs[:, :, :, day:day + cfg.window_days], ds.x, ds.y)
         cells_xy = np.stack([ds.x[self.active_ij], ds.y[self.active_ij]], axis=1)
         self.batches = gather_neighborhoods(train, cells_xy, t_star=float(cfg.t_mid),
                                             radius_m=cfg.radius_km * 1e3, dtype=np.float32)
@@ -623,9 +634,12 @@ def phase_slice(tmp: str, day: _Day) -> dict:
     return launches
 
 
-def _check_optimum(day: _Day, res, date) -> dict:
+def _check_optimum(day: _Day, res, date, fit_batches=None) -> dict:
     """For 64 cells of each bucket, on the problem the pipeline fitted (the
-    shuffled 1,024-point prefix), everything evaluated by the float64 twin:
+    shuffled 1,024-point prefix; ``fit_batches``, where given, are the
+    day's buckets shuffled as the fit shuffled them, else ``day``'s buckets
+    are shuffled here as a day alone shuffles them), everything evaluated by
+    the float64 twin:
 
     * ``gap``: the NLL at the hypers the fit wrote, minus the NLL a float64
       fit of the plain objective reaches from there under the same stopping
@@ -671,9 +685,9 @@ def _check_optimum(day: _Day, res, date) -> dict:
                 "share_above_0.05": (t > 0.05).double().mean().item()}
 
     out = {}
-    for b in day.batches:
+    for b in fit_batches or day.batches:
         cap = min(b.capacity, day.cfg.opt_n_max)
-        if cap < b.capacity:
+        if cap < b.capacity and fit_batches is None:
             _permute_valid_points(b)  # the subsample the pipeline took
         rows, gi, gj = day.rows(b)
         lh = np.log(np.stack([res[f"{date}_{k}"][gi, gj] for k in HYPERS], 1))
@@ -708,12 +722,13 @@ def _check_optimum(day: _Day, res, date) -> dict:
     return out
 
 
-def _rows_histogram() -> dict:
-    """K3 value launches of the last daily run by rows per launch, in bins."""
+def _rows_histogram(rows=None) -> dict:
+    """K3 value launches by rows per launch, in bins: of ``rows`` (a
+    Counter, rows -> launches), else of the last daily run."""
     from optimalinterpolation_tpu_torch.ops import fused_gp
 
     bins = [(1, 1), (2, 8), (9, 32), (33, 128), (129, 512), (513, 1 << 30)]
-    rows = fused_gp.gp_nll.rows
+    rows = fused_gp.gp_nll.rows if rows is None else rows
     hist = {f"{lo}-{hi}" if hi < 1 << 30 else f">{lo - 1}":
             sum(c for r, c in rows.items() if lo <= r <= hi) for lo, hi in bins}
     hist["launches"] = sum(rows.values())
@@ -721,16 +736,24 @@ def _rows_histogram() -> dict:
     return hist
 
 
+def _stage_entries(records) -> list:
+    """The stage INFO records as printed: converged cells as a share, and
+    iterations a cell, in the fitting stages."""
+    stages = []
+    for e in records:
+        e = dict(e)
+        if "converged" in e:
+            e["converged_share"] = e.pop("converged") / e["cells"]
+            e["iters_a_cell"] = e["iters_sum"] / e["cells"]
+        stages.append(e)
+    return stages
+
+
 def phase_fit(tmp: str, day: _Day) -> dict:
     torch.cuda.reset_peak_memory_stats()
     res, date, launches, syncs, day_s, handler = _run_daily(tmp, [])
     peak = torch.cuda.max_memory_allocated() / 1e9
-    stages = []
-    for e in handler.stages:
-        e = dict(e)
-        if "converged" in e:
-            e["converged_share"] = e.pop("converged") / e["cells"]
-        stages.append(e)
+    stages = _stage_entries(handler.stages)
     fitted = [e for e in stages if e["stage"] == "opt"]
     n_active = int(day.active.sum())
     _phase("fit", date=date, active_cells=n_active, cut="none: the whole day",
@@ -753,15 +776,21 @@ def phase_fit(tmp: str, day: _Day) -> dict:
            pass2_vs_f64={str(n): {"cells": c, "d_mean": dm, "d_std": ds_}
                          for n, (c, dm, ds_) in check.items()},
            optimum_vs_f64={str(n): v for n, v in optimum.items()})
+    _gate_optimum(optimum, date)
+    return {**launches, "day_wall_s": day_s, "cells": n_active,
+            "k3_value_launches": launches["K3 value"]}
+
+
+def _gate_optimum(optimum: dict, date: str) -> None:
+    """The optimum gates of ``_check_optimum``'s docstring."""
     for n, v in optimum.items():
         if not v["k3_vs_twin32"]["p95"] <= NLL_TYPICAL:
-            _fail(f"N={n}: from the same start the fit through K3 ends "
+            _fail(f"{date} N={n}: from the same start the fit through K3 ends "
                   f"{v['k3_vs_twin32']['p95']} nats (p95) above the float32 twin's")
         if not (v["gap"]["median"] <= NLL_TYPICAL and v["gap"]["mean"] <= NLL_MEAN):
-            _fail(f"N={n}: the float64 NLL at the fitted hypers is {v['gap']['median']} "
-                  f"(median) / {v['gap']['mean']} (mean) nats above what a float64 fit "
-                  f"reaches from there (> {NLL_TYPICAL} / {NLL_MEAN})")
-    return launches
+            _fail(f"{date} N={n}: the float64 NLL at the fitted hypers is "
+                  f"{v['gap']['median']} (median) / {v['gap']['mean']} (mean) nats above what "
+                  f"a float64 fit reaches from there (> {NLL_TYPICAL} / {NLL_MEAN})")
 
 
 # ---------------------------------------------------------------------------
@@ -1125,6 +1154,258 @@ def phase_objectives(day) -> dict:
             "nystroem chol_inv": ab["fits"]["nystroem"]["k1_launches"]}
 
 
+# ---------------------------------------------------------------------------
+# season: strided waves of days through pipeline.season.run_season
+# ---------------------------------------------------------------------------
+
+SEASON_DAYS = 12  # 4 valid 9-day windows
+SEASON_WINDOWS = [0, 1, 2, 3]
+DAY_PARALLEL = 2
+# The single day of the fit phase as an earlier run measured it (PERF.md
+# section 5: NVIDIA H100 80GB HBM3, 700.00 W), printed beside the waves.
+EARLIER_DAY = {"label": "earlier run, PERF.md section 5", "cells_per_s": 399.5,
+               "k3_value_launches": 5133, "cells": 19989}
+# Host steps outside the stages, by the functions the pipeline calls for
+# them, in the modules that call them.
+HOST_STEPS = {
+    "gather": [("pipeline.multiday", "gather_neighborhoods")],
+    "window": [("pipeline.multiday", "flatten_window")],
+    "nearest_fill": [("pipeline.multiday", "nearest_fill"), ("pipeline.daily", "nearest_fill")],
+    "pickle": [("pipeline.season", "save_pickle")],
+}
+
+
+class _SeasonProbe:
+    """Wraps the season's host steps (``HOST_STEPS``) to time them on the
+    host clock, and ``season.interpolate_days`` to read, for each wave, the
+    launch counts, K3 value launches by rows, host synchronisations, stage
+    records and peak device memory before and after it."""
+
+    def __init__(self, handler):
+        import importlib
+
+        self.handler = handler
+        self.spans = []  # (step, start, end)
+        self.waves = []
+        self.patched = []
+        for step, places in HOST_STEPS.items():
+            for mod_name, attr in places:
+                mod = importlib.import_module(f"optimalinterpolation_tpu_torch.{mod_name}")
+                self.patched.append((mod, attr, getattr(mod, attr)))
+                setattr(mod, attr, self._timed(step, getattr(mod, attr)))
+        from optimalinterpolation_tpu_torch.pipeline import season
+
+        self.patched.append((season, "interpolate_days", season.interpolate_days))
+        season.interpolate_days = self._wave(season.interpolate_days)
+
+    def _timed(self, step, fn):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self.spans.append((step, t0, time.perf_counter()))
+            return out
+        return timed
+
+    def _wave(self, fn):
+        from optimalinterpolation_tpu_torch.models import optimizer
+        from optimalinterpolation_tpu_torch.ops import fused_gp
+
+        def wave(ds, days, *args, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            launches0 = _counts()
+            rows0 = fused_gp.gp_nll.rows.copy()
+            syncs0 = optimizer._lbfgs_segment.host_syncs
+            n_stages = len(self.handler.stages)
+            t0 = time.perf_counter()
+            out = fn(ds, days, *args, **kw)
+            torch.cuda.synchronize()
+            self.waves.append({
+                "windows": list(days), "t0": t0, "call_s": time.perf_counter() - t0,
+                "launches": {k: v - launches0[k] for k, v in _counts().items()},
+                "rows": fused_gp.gp_nll.rows - rows0,
+                "host_syncs": optimizer._lbfgs_segment.host_syncs - syncs0,
+                "stages": _stage_entries(self.handler.stages[n_stages:]),
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "cells": sum(int(np.isfinite(r.interp).sum()) for r in out),
+            })
+            return out
+        return wave
+
+    def close(self):
+        for mod, attr, fn in self.patched:
+            setattr(mod, attr, fn)
+
+    def report(self, j: int) -> dict:
+        """Wave ``j``: the wall from its first gather to its last pickle and
+        the host seconds of each step outside the stages."""
+        w = dict(self.waves[j])
+        t_next = self.waves[j + 1]["t0"] if j + 1 < len(self.waves) else float("inf")
+        spans = [sp for sp in self.spans if w["t0"] <= sp[1] < t_next]
+        wall = max(sp[2] for sp in spans) - min(sp[1] for sp in spans if sp[0] == "gather")
+        host = {step: sum(e - b for st, b, e in spans if st == step) for step in HOST_STEPS}
+        stage_s = sum(e["wall_s"] for e in w["stages"])
+        host["other"] = wall - stage_s - sum(host.values())
+        return {"windows": w.pop("windows"), "cells": w["cells"], "wall_s": wall,
+                "cells_per_s": w["cells"] / wall, "interpolate_days_s": w["call_s"],
+                "cells_per_s_interpolate_days": w["cells"] / w["call_s"],
+                "stage_s": stage_s, "host_outside_stages_s": host,
+                "launches": w["launches"], "k3_value_rows": _rows_histogram(w["rows"]),
+                "k3_value_launches_a_cell": w["launches"]["K3 value"] / w["cells"],
+                "host_syncs": w["host_syncs"], "peak_mem_gb": w["peak_mem_gb"],
+                "stages": w["stages"]}
+
+
+def _counts() -> dict:
+    from optimalinterpolation_tpu_torch.ops import blocked_gp, fused_gp
+
+    return {"K1": blocked_gp._factor_invert.launches, "K2": fused_gp.gp_predict.launches,
+            "K3 value": fused_gp.gp_nll.launches, "K3 grad": fused_gp.gp_nll_and_grad.launches}
+
+
+def _zero_counts() -> None:
+    from optimalinterpolation_tpu_torch.models import optimizer
+    from optimalinterpolation_tpu_torch.ops import blocked_gp, fused_gp
+
+    for fn in (blocked_gp._factor_invert, fused_gp.gp_predict, fused_gp.gp_nll,
+               fused_gp.gp_nll_and_grad):
+        fn.launches = 0
+    fused_gp.gp_nll.rows.clear()
+    optimizer._lbfgs_segment.host_syncs = 0
+
+
+def _wave_fit_batches(wave: list) -> list:
+    """For each day of a wave (``_Day`` objects in wave order), its rows of
+    the wave's combined buckets, shuffled as the fit shuffled them: one
+    permutation per row over the combined bucket, where the fit took a
+    subsample. Cell indices are the day's own."""
+    from optimalinterpolation_tpu_torch.data.neighbors import NeighborhoodBatch
+    from optimalinterpolation_tpu_torch.pipeline import multiday
+    from optimalinterpolation_tpu_torch.pipeline.daily import _permute_valid_points
+
+    cfg = wave[0].cfg
+    offsets = multiday._offsets(wave)
+    out = [[] for _ in wave]
+    for cap, items in sorted(multiday._per_capacity(wave).items()):
+        full_b, day_of_row = multiday._concat_buckets(items, offsets, cfg.batch_multiple)
+        if min(cap, cfg.opt_n_max) < cap:
+            _permute_valid_points(full_b)
+        for dpos in range(len(wave)):
+            r = (day_of_row == dpos) & (full_b.cell_index >= 0)
+            out[dpos].append(NeighborhoodBatch(
+                x=full_b.x[r], z=full_b.z[r], mask=full_b.mask[r], xstar=full_b.xstar[r],
+                cell_index=full_b.cell_index[r] - offsets[dpos], n_valid_cells=int(r.sum())))
+    return out
+
+
+def _run_season(ds, outdir: str):
+    """``run_season`` over ``SEASON_WINDOWS`` at the fit settings of the
+    ``daily`` and ``season`` commands' defaults, those of the fit phase's
+    day: ``DailyConfig()`` with the commands' plateau stop (``--ftol``
+    1e-3) and jitter (1e-6). ``DailyConfig()`` alone has no plateau stop,
+    and every cell would run to the 60-iteration cap."""
+    from optimalinterpolation_tpu_torch.models.optimizer import OptimizeConfig
+    from optimalinterpolation_tpu_torch.pipeline.daily import DailyConfig
+    from optimalinterpolation_tpu_torch.pipeline.season import SeasonConfig, run_season
+
+    lines = []
+    daily = DailyConfig(opt=OptimizeConfig(ftol_abs=1e-3), jitter=1e-6)
+    cfg = SeasonConfig(daily=daily, outdir=outdir, day_parallel=DAY_PARALLEL,
+                       write_quicklook=False)
+    res = run_season(ds, cfg, days=SEASON_WINDOWS, prior_fn=lambda d: PRIOR, log=lines.append)
+    torch.cuda.synchronize()
+    return res, lines
+
+
+def phase_season(fit: dict) -> dict:
+    """The season phase (see the module docstring). Returns each kernel's
+    launches in the cold and the chained wave."""
+    from optimalinterpolation_tpu_torch.data.reader import read_freeboard_season
+    from optimalinterpolation_tpu_torch.data.synthetic import make_synthetic_season
+    from optimalinterpolation_tpu_torch.io.pickles import load_pickle
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        make_synthetic_season(tmp, grid_res_km=RES_KM, n_days=SEASON_DAYS, seed=7,
+                              tracks_per_day=(10, 3, 8, 8), noise_std=0.1)
+        make_s = time.perf_counter() - t0
+        ds = read_freeboard_season(tmp, RES_KM, "2018-2019")
+        out = os.path.join(tmp, "season")
+        handler = _DailyLog()
+        log = logging.getLogger("optimalinterpolation_tpu_torch.pipeline.daily")
+        log.addHandler(handler)
+        log.setLevel(logging.INFO)
+        probe = _SeasonProbe(handler)
+        try:
+            _zero_counts()
+            t0 = time.perf_counter()
+            results, lines = _run_season(ds, out)
+            season_s = time.perf_counter() - t0
+            launches = _counts()
+            waves = [probe.report(j) for j in range(len(probe.waves))]
+        finally:
+            probe.close()
+            log.removeHandler(handler)
+        for w in waves:
+            _phase("season_wave", **w)
+        if [w["windows"] for w in waves] != [[0, 2], [1, 3]] or len(results) != 4:
+            _fail(f"the season ran {[w['windows'] for w in waves]}, not windows [0, 2], [1, 3]")
+        chained = [e["stage"] for e in waves[1]["stages"]]
+        if any(st.startswith("seed:") or st == "cascade" for st in chained):
+            _fail(f"the chained wave ran a seed pass or a cascade: {chained}")
+        if min(launches.values()) == 0:
+            _fail(f"the season did not launch every kernel: {launches}")
+
+        days = {w: _Day(tmp, w) for w in SEASON_WINDOWS}
+        fit_batches = {}
+        for wave in ([0, 2], [1, 3]):
+            for w, b in zip(wave, _wave_fit_batches([days[w] for w in wave])):
+                fit_batches[w] = b
+        checks = {}
+        for w, day in days.items():
+            res = load_pickle(os.path.join(out, f"CS2S3_{day.date}_{RES_KM}km.pkl"))
+            if len(res) != 15:
+                _fail(f"{day.date}: the pickle has {len(res)} keys, not 15")
+            day.check_finite(res, day.date, [k[len(day.date) + 1:] for k in res])
+            check = day.check_predict(res, day.date, "_smth")
+            checks[day.date] = {
+                "window": w, "active_cells": int(day.active.sum()),
+                "rmse_vs_truth_m": day.rmse(res[f"{day.date}_interp_smth"]),
+                "rmse_pass1_vs_truth_m": day.rmse(res[f"{day.date}_interp"]),
+                "pass2_vs_f64": {str(n): {"cells": c, "d_mean": dm, "d_std": ds_}
+                                 for n, (c, dm, ds_) in check.items()}}
+            t_opt = time.perf_counter()
+            optimum = _check_optimum(day, res, day.date, fit_batches[w])
+            checks[day.date]["optimum_vs_f64"] = {str(n): v for n, v in optimum.items()}
+            checks[day.date]["optimum_check_s"] = time.perf_counter() - t_opt
+            _gate_optimum(optimum, day.date)
+        _phase("season_check", days=checks)
+
+        # a second call on the same directory: every day resumed, nothing launched
+        _zero_counts()
+        again, again_lines = _run_season(ds, out)
+        resumed = _counts()
+        if again or any(resumed.values()) or sum("skipping (resume)" in s
+                                                 for s in again_lines) != 4:
+            _fail(f"the second season call did not resume all four days: {len(again)} days "
+                  f"run, launches {resumed}, log {again_lines}")
+    _phase("season", windows=SEASON_WINDOWS, day_parallel=DAY_PARALLEL,
+           synthetic_season_s=make_s, season_call_s=season_s, log=lines,
+           launches=launches, resume={"days_run": 0, "launches": resumed},
+           waves={"cold": {k: waves[0][k] for k in ("cells", "wall_s", "cells_per_s",
+                                                     "cells_per_s_interpolate_days",
+                                                     "k3_value_launches_a_cell")},
+                  "chained": {k: waves[1][k] for k in ("cells", "wall_s", "cells_per_s",
+                                                        "cells_per_s_interpolate_days",
+                                                        "k3_value_launches_a_cell")}},
+           single_day_this_run={"cells_per_s": fit["cells"] / fit["day_wall_s"],
+                                "k3_value_launches": fit["k3_value_launches"],
+                                "k3_value_launches_a_cell":
+                                    fit["k3_value_launches"] / fit["cells"]},
+           single_day_earlier=EARLIER_DAY)
+    return {"cold": waves[0]["launches"], "chained": waves[1]["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False")
@@ -1143,28 +1424,36 @@ def main() -> int:
         quick = phase_slice(tmp, day)
         fit = phase_fit(tmp, day)
         objectives = phase_objectives(day)
+    season = phase_season(fit)
 
     def paths(name):
-        return {"launches": fit[name], "launches_by_path": {"quicklook": quick[name],
-                                                            "fit": fit[name]}}
+        return {"launches": fit[name], "launches_by_path": {
+            "quicklook": quick[name], "fit": fit[name],
+            "season": {wave: season[wave][name] for wave in ("cold", "chained")}}}
 
     k1_paths = paths("K1")
     k1_paths["launches_by_path"].update(objectives)
+    waves = "season waves (cold, chained)"
     kernels = [
         {"name": "K1 factor_invert_128", "route": "cuda",
          "source": "optimalinterpolation_tpu_torch/csrc/k1_factor_invert.cu",
          "replaces": "optimalinterpolation_tpu/ops/blocked_gp.py:80", **k1_paths,
-         "launched_by": ["blocked predict (quicklook, fit)", "blocked objective",
+         "launched_by": ["blocked predict (quicklook, fit, season waves)", "blocked objective",
                          "Nystrom chol_inv"], **k1},
         {"name": "K2 fused predict", "route": "cuda",
          "source": "optimalinterpolation_tpu_torch/csrc/k2_predict.cu",
-         "replaces": "optimalinterpolation_tpu/ops/pallas_gp.py:795", **paths("K2"), **k2},
+         "replaces": "optimalinterpolation_tpu/ops/pallas_gp.py:795", **paths("K2"),
+         "launched_by": ["fused predict (quicklook, fit)", waves], **k2},
         {"name": "K3 fused NLL + gradient", "route": "cuda",
          "source": "optimalinterpolation_tpu_torch/csrc/k3_nll_grad.cu",
          "replaces": "optimalinterpolation_tpu/ops/pallas_gp.py:501",
          "launches": fit["K3 value"] + fit["K3 grad"],
          "launches_by_path": {"quicklook": 0, "fit": {"value": fit["K3 value"],
-                                                      "grad": fit["K3 grad"]}}, **k3},
+                                                      "grad": fit["K3 grad"]},
+                              "season": {wave: {"value": season[wave]["K3 value"],
+                                                "grad": season[wave]["K3 grad"]}
+                                         for wave in ("cold", "chained")}},
+         "launched_by": ["fit (seed pass, cascade, fine stage)", waves], **k3},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

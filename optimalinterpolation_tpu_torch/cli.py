@@ -5,6 +5,9 @@
                                    smoothing, second predict
   python -m optimalinterpolation_tpu_torch daily --hypers H.npz ...
                                    one quicklook daily field (predict only)
+  python -m optimalinterpolation_tpu_torch season ... [--day-parallel W]
+                                   a season of daily fields, chained day to
+                                   day, in strided waves of W days
   python -m optimalinterpolation_tpu_torch synth   synthetic season generator
 
 Argument names and defaults follow ``optimalinterpolation_tpu/cli.py`` for
@@ -70,34 +73,34 @@ def _add_daily_args(p):
                         "iterations, seconds)")
 
 
-def _prior(args, ds, day: int) -> float:
+def _prior(args):
+    """The day -> prior mean function the arguments ask for."""
     if args.prior_mean is not None:
-        return args.prior_mean
+        return lambda day: args.prior_mean
     if args.fyi is not None:
         from optimalinterpolation_tpu_torch.data.prior import constant_fyi_prior
 
-        return constant_fyi_prior(np.load(args.fyi), day, offset=args.fyi_offset)
+        fyi = np.load(args.fyi)
+        return lambda day: constant_fyi_prior(fyi, day, offset=args.fyi_offset)
     raise SystemExit("provide --prior-mean or --fyi")
 
 
-def cmd_daily(args):
+def _setup(args):
+    """Logging as ``--verbose`` asks, and full float32 in the blocked
+    Cholesky's products (TF32 keeps ~3 digits). Returns the dataset and the
+    daily configuration of the arguments."""
     import torch
 
     from optimalinterpolation_tpu_torch.data.reader import read_freeboard_season
-    from optimalinterpolation_tpu_torch.io.pickles import save_pickle
     from optimalinterpolation_tpu_torch.models.optimizer import OptimizeConfig
     from optimalinterpolation_tpu_torch.ops.kernels import Kernel
-    from optimalinterpolation_tpu_torch.pipeline.daily import (
-        DailyConfig,
-        interpolate_daily,
-    )
+    from optimalinterpolation_tpu_torch.pipeline.daily import DailyConfig
 
     if args.verbose:
         import logging
 
         logging.basicConfig(level=logging.INFO, format="%(message)s")
         logging.getLogger("optimalinterpolation_tpu_torch").setLevel(logging.INFO)
-    # Full float32 in the blocked Cholesky's products (TF32 keeps ~3 digits).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ds = read_freeboard_season(args.datapath, args.grid_res, args.season)
@@ -111,15 +114,63 @@ def cmd_daily(args):
     )
     if args.opt_n_max is not None:
         cfg = dataclasses.replace(cfg, opt_n_max=args.opt_n_max)
+    return ds, cfg
+
+
+def cmd_daily(args):
+    from optimalinterpolation_tpu_torch.io.pickles import save_pickle
+    from optimalinterpolation_tpu_torch.pipeline.daily import interpolate_daily
+
+    ds, cfg = _setup(args)
     res = interpolate_daily(
-        ds, args.day, _prior(args, ds, args.day), cfg,
+        ds, args.day, _prior(args)(args.day), cfg,
         precomputed_hypers=args.hypers, device=args.device,
     )
     os.makedirs(args.outdir, exist_ok=True)
     out = os.path.join(args.outdir, f"CS2S3_{res.date}_{ds.grid_res_km}km.pkl")
     save_pickle(res.to_reference_dict(), out)
-    print(json.dumps({"date": res.date, "output": out,
-                      "cells": int(np.isfinite(res.interp).sum())}))
+    outputs = {"date": res.date, "output": out, "cells": int(np.isfinite(res.interp).sum())}
+    if args.quicklook:
+        from optimalinterpolation_tpu_torch.io.quicklook import (
+            grid_lonlat,
+            write_result_quicklook,
+        )
+
+        lon, lat = grid_lonlat(ds.x, ds.y)
+        outputs["quicklook"] = write_result_quicklook(res, lon, lat, ds.grid_res_km,
+                                                      args.outdir)
+    print(json.dumps(outputs))
+
+
+def _days_spec(spec: str):
+    """``--days`` value -> slice over the season's valid window indices:
+    ``"5"`` window 5 only; ``"2:10"``, ``"2:"``, ``":10"`` python slices;
+    ``"0:30:3"`` every 3rd window. ``run_season`` applies the slice to its
+    own valid-window range."""
+    parts = spec.split(":")
+    try:
+        ints = [int(p) if p else None for p in parts]
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"invalid --days {spec!r}: expected INT, START:STOP, or "
+            "START:STOP:STEP (python slice semantics)"
+        )
+    if len(parts) == 1:
+        i = ints[0]
+        return slice(i, None if i == -1 else i + 1)
+    if len(parts) > 3:
+        raise argparse.ArgumentTypeError(f"invalid --days {spec!r}: at most START:STOP:STEP")
+    return slice(*ints)
+
+
+def cmd_season(args):
+    from optimalinterpolation_tpu_torch.pipeline.season import SeasonConfig, run_season
+
+    ds, daily = _setup(args)
+    cfg = SeasonConfig(daily=daily, outdir=args.outdir, resume=not args.no_resume,
+                       day_parallel=args.day_parallel)
+    run_season(ds, cfg, days=args.days, prior_fn=_prior(args),
+               precomputed_hypers=args.hypers, device=args.device)
 
 
 def cmd_synth(args):
@@ -138,7 +189,23 @@ def main(argv=None):
     p = sub.add_parser("daily", help="produce one daily field")
     _add_daily_args(p)
     p.add_argument("--day", type=int, default=0, help="window start index")
+    p.add_argument("--quicklook", action="store_true",
+                   help="also write the quicklook NetCDF (reference schema; needs h5py)")
     p.set_defaults(fn=cmd_daily)
+
+    p = sub.add_parser("season", help="produce a season of daily fields")
+    _add_daily_args(p)
+    p.add_argument("--no-resume", action="store_true")
+    p.add_argument("--days", default=None, type=_days_spec,
+                   metavar="START:STOP[:STEP]",
+                   help="window start-index range (python slice semantics, "
+                        "e.g. 0:30 or 0:30:3; a bare INT runs that one "
+                        "window); default = every valid window")
+    p.add_argument("--day-parallel", type=int, default=1, metavar="W",
+                   help="process the season in strided waves of up to W "
+                        "days stacked into one combined cell batch "
+                        "(pipeline.multiday); 1 = one day at a time")
+    p.set_defaults(fn=cmd_season)
 
     p = sub.add_parser("synth", help="generate a synthetic season")
     p.add_argument("--outdir", required=True)

@@ -22,11 +22,15 @@ to the last. Each predict runs in chunks of one fixed tile size through
 with K1 above), and each chunk's results come back to the host in one copy.
 
 Output keys replicate the reference result dict (``:290-307,333-334``).
+
+This module holds the day's configuration, results and per-bucket steps; the
+flow above runs in ``pipeline.multiday.interpolate_days``, of which
+:func:`interpolate_daily` is the wave of one day, so a day and a wave of
+days take one code path.
 """
 
 from __future__ import annotations
 
-import copy
 import dataclasses
 import logging
 import time
@@ -38,12 +42,9 @@ import torch
 from optimalinterpolation_tpu_torch.data.neighbors import (
     DEFAULT_BUCKETS,
     NeighborhoodBatch,
-    gather_neighborhoods,
 )
 from optimalinterpolation_tpu_torch.data.reader import ObsDataset
 from optimalinterpolation_tpu_torch.data.regrid import nearest_fill
-from optimalinterpolation_tpu_torch.data.window import flatten_window
-from optimalinterpolation_tpu_torch.models import exact_gp
 from optimalinterpolation_tpu_torch.models.exact_gp_batch import predict_batch
 from optimalinterpolation_tpu_torch.models.optimizer import (
     _SEG_SCHEDULE,
@@ -204,10 +205,14 @@ def load_hypers(src: Union[str, dict]) -> dict:
     return fields
 
 
-def _scatter(grid: np.ndarray, active_ij, cell_idx: np.ndarray, values: np.ndarray):
-    """Write bucket rows (skipping batch padding) back onto the 2-D grid."""
-    real = cell_idx >= 0
-    grid[active_ij[0][cell_idx[real]], active_ij[1][cell_idx[real]]] = values[real]
+def _filled_init(init_hypers: Union[str, dict], ds: ObsDataset, sie_day: np.ndarray) -> dict:
+    """Warm-start fields (as :func:`load_hypers` takes them) for the day
+    whose ice mask is ``sie_day``: newly active cells (the growing ice edge)
+    have no init of their own and take the nearest cell's. All-NaN fields
+    stay NaN, and their cells start from x0."""
+    init = load_hypers(init_hypers)
+    return {name: nearest_fill(init[name], ds.x, ds.y, valid_mask=np.isfinite(sie_day))
+            for name in HYPER_NAMES}
 
 
 def _prior_at_cells(prior_mean, shape, active_ij):
@@ -493,10 +498,9 @@ def interpolate_daily(
     init_hypers: Optional[dict] = None,
     stats: Optional[list] = None,
     device: Union[str, torch.device] = "cuda",
-    _hypers_only: bool = False,
-    _seed_init: bool = False,
 ) -> DailyResult:
-    """One daily interpolated field with uncertainty, on ``device``.
+    """One daily interpolated field with uncertainty, on ``device``: the wave
+    of one day (``pipeline.multiday.interpolate_days``).
 
     Args:
       ds: season dataset (``data.reader.read_freeboard_season`` or synthetic).
@@ -522,131 +526,10 @@ def interpolate_daily(
     seconds)`` per bucket; the seconds end with the bucket's last results on
     the host. Each stage logs one INFO record ``stage {...}``.
     """
-    cfg = config
-    device = torch.device(device)
-    dtype = np.dtype(cfg.dtype)
-    date = ds.dates[day + cfg.t_mid]
-    sie_day = ds.sie[:, :, day + cfg.t_mid]
-    shape = sie_day.shape
+    from optimalinterpolation_tpu_torch.pipeline.multiday import interpolate_days  # imports this
 
-    if cfg.spatial_seed_stride > 1 and init_hypers is None and precomputed_hypers is None:
-        # Phase A: cold-optimize the seed sublattice only (1/stride^2 of the
-        # cells). Phase B: every cell, initialized from its nearest seed.
-        s = cfg.spatial_seed_stride
-        seed_keep = np.zeros(shape, bool)
-        seed_keep[s // 2 :: s, s // 2 :: s] = True
-        if int((seed_keep & np.isfinite(sie_day)).sum()) >= 8:  # else the fill means little
-            seed_sie = ds.sie.copy()
-            seed_sie[~seed_keep] = np.nan
-            ds_seed = copy.copy(ds)
-            ds_seed.sie = seed_sie
-            flat_cfg = dataclasses.replace(cfg, spatial_seed_stride=0)
-            seed_res = interpolate_daily(
-                ds_seed, day, prior_mean, flat_cfg, stats=stats, device=device,
-                _hypers_only=True,
-            )
-            init = {name: nearest_fill(seed_res.hypers[name], ds.x, ds.y) for name in HYPER_NAMES}
-            return interpolate_daily(
-                ds, day, prior_mean, flat_cfg, init_hypers=init, stats=stats, device=device,
-                _seed_init=True,
-            )
-
-    train = flatten_window(ds.obs[:, :, :, day : day + cfg.window_days], ds.x, ds.y)
-    active_ij = np.nonzero(np.isfinite(sie_day))
-    cells_xy = np.stack([ds.x[active_ij], ds.y[active_ij]], axis=1)
-    prior_cells, prior_fill = _prior_at_cells(prior_mean, shape, active_ij)
-    batches = gather_neighborhoods(
-        train, cells_xy, t_star=float(cfg.t_mid), radius_m=cfg.radius_km * 1000.0,
-        buckets=cfg.buckets, batch_multiple=cfg.batch_multiple, dtype=dtype,
-    )
-
-    def predict(full_b, lh_rows, grids, stage):
-        """Predict one bucket into ``grids`` (mean, std[, lZ])."""
-        t0 = time.perf_counter()
-        out, tile = _predict_bucket(full_b, lh_rows, prior_cells, prior_fill, cfg, dtype, device)
-        for grid, values in zip(grids, out):
-            _scatter(grid, active_ij, full_b.cell_index, values)
-        logger.info(
-            "bucket N=%d: %d cells in %d-row tiles, %.3f s",
-            full_b.capacity, full_b.n_valid_cells, tile, time.perf_counter() - t0,
-        )
-        if stage is not None:
-            _stage(stats, stage, full_b.capacity, len(full_b), t0)
-
-    interp = np.full(shape, np.nan)
-    interp_error = np.full(shape, np.nan)
-    lz_grid = np.full(shape, np.nan)
-
-    if precomputed_hypers is not None:
-        hypers = load_hypers(precomputed_hypers)
-        for name, field in hypers.items():
-            if field.shape != shape:
-                raise ValueError(f"{name} field shape {field.shape} != grid shape {shape}")
-        at_cells = np.stack([hypers[k][active_ij] for k in HYPER_NAMES], axis=1)
-        for full_b in batches:
-            predict(full_b, _log_rows(at_cells, full_b.cell_index, dtype),
-                    (interp, interp_error, lz_grid), None)
-        return DailyResult(
-            date=date, interp=interp.copy(), interp_error=interp_error.copy(), lZ=lz_grid,
-            hypers=hypers, hypers_smth=hypers, interp_smth=interp,
-            interp_error_smth=interp_error,
-        )
-
-    x0 = exact_gp.HYPER_INIT_LOG(ds.grid_res_km * 1000.0, dtype=torch.float64).numpy()
-    init_at_cells = None
-    if init_hypers is not None:
-        # Newly active cells (the growing ice edge) have no init of their
-        # own: they take the nearest cell's. All-NaN fields fall back to x0.
-        init = load_hypers(init_hypers)
-        filled = {
-            name: nearest_fill(init[name], ds.x, ds.y, valid_mask=np.isfinite(sie_day))
-            for name in HYPER_NAMES
-        }
-        init_at_cells = np.stack([filled[name][active_ij] for name in HYPER_NAMES], axis=1)
-
-    # ---- pass 1: per-cell MLL optimization + prediction (GPR3D(opt=True)) --
-    hyper_grids = {name: np.full(shape, np.nan) for name in HYPER_NAMES}
-    opt_cfg = dataclasses.replace(cfg.opt, kind=cfg.kind, jitter=cfg.jitter)
-    for full_b in batches:
-        prior_rows = _prior_rows(prior_cells, prior_fill, full_b.cell_index, dtype)
-        lh_all = _optimize_bucket(
-            full_b, x0, init_at_cells, prior_rows, cfg, opt_cfg, dtype, device, stats,
-            seed_init=_seed_init, hypers_only=_hypers_only,
-        )
-        hyp = np.exp(lh_all.astype(np.float64))
-        for hi, name in enumerate(HYPER_NAMES):
-            _scatter(hyper_grids[name], active_ij, full_b.cell_index, hyp[:, hi])
-        if not _hypers_only:
-            predict(full_b, lh_all, (interp, interp_error, lz_grid), "predict")
-    if _hypers_only:
-        # Seed pass: only the hyper fields are consumed; no predict at all.
-        nan = np.full(shape, np.nan)
-        return DailyResult(
-            date=date, interp=interp, interp_error=interp_error, lZ=lz_grid,
-            hypers=hyper_grids, hypers_smth=hyper_grids, interp_smth=nan,
-            interp_error_smth=nan.copy(),
-        )
-
-    # ---- smoothing of hyperparameter fields (smooth(), :299-307) ----------
-    radius_m = cfg.radius_km * 1000.0
-    vmaxes = {
-        "ell_x": 2.0 * radius_m, "ell_y": 2.0 * radius_m, "ell_t": float(cfg.window_days),
-        "sf2": cfg.sf2_vmax, "sn2": cfg.sn2_vmax,
-    }
-    t_smooth = time.perf_counter()
-    hypers_smth = _smooth_fields(hyper_grids, vmaxes, sie_day, cfg.smoothing_std(ds.grid_res_km))
-    _stage(stats, "smooth", int(shape[0]), 5, t_smooth)
-
-    # ---- pass 2: re-predict with smoothed hypers (GPR3D(opt=False)) -------
-    interp_smth = np.full(shape, np.nan)
-    interp_error_smth = np.full(shape, np.nan)
-    smth_at_cells = np.stack([hypers_smth[name][active_ij] for name in HYPER_NAMES], axis=1)
-    for full_b in batches:
-        predict(full_b, _log_rows(smth_at_cells, full_b.cell_index, dtype),
-                (interp_smth, interp_error_smth), "pass2")
-
-    return DailyResult(
-        date=date, interp=interp, interp_error=interp_error, lZ=lz_grid,
-        hypers=hyper_grids, hypers_smth=hypers_smth, interp_smth=interp_smth,
-        interp_error_smth=interp_error_smth,
-    )
+    return interpolate_days(
+        ds, [day], [prior_mean], config,
+        init_hypers=None if init_hypers is None else [init_hypers],
+        precomputed_hypers=precomputed_hypers, stats=stats, device=device,
+    )[0]

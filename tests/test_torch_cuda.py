@@ -1,5 +1,6 @@
-"""K1, K2 and K3 on the card against their plain twins, and the blocked and
-Nystrom objectives built on K1 against float64 (marker ``cuda``).
+"""K1, K2 and K3 on the card against their plain twins, the blocked and
+Nystrom objectives built on K1 against float64, and a wave of days against
+the same days one by one (marker ``cuda``).
 
 These tests need an NVIDIA card and ``nvcc``; without them they skip. They
 import no JAX, so on the card they run without the suite's conftest:
@@ -382,3 +383,42 @@ def test_objectives_refuse_tf32(card, name):
             _OBJECTIVES[name](*args, jitter=1e-6)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def test_wave_matches_serial_days_on_card(card, tmp_path):
+    """tests/test_multiday.py's wave season and ``_CFG`` (buckets (128,
+    256)) in float32 on the card: a wave of windows 0 and 2 gives every one
+    of the 15 fields of each day bit for bit as the day run alone. At these
+    buckets only K2 and K3 run (no K1), a row's bits do not depend on the
+    rows that share its launch (``test_rows_do_not_depend_on_the_launch``),
+    and the optimizer's updates are row by row, so equality is required."""
+    from optimalinterpolation_tpu_torch.data.reader import read_freeboard_season
+    from optimalinterpolation_tpu_torch.data.synthetic import make_synthetic_season
+    from optimalinterpolation_tpu_torch.models.optimizer import OptimizeConfig
+    from optimalinterpolation_tpu_torch.pipeline.daily import DailyConfig, interpolate_daily
+    from optimalinterpolation_tpu_torch.pipeline.multiday import interpolate_days
+
+    make_synthetic_season(str(tmp_path), grid_res_km=125, n_days=12, seed=5, noise_std=0.03,
+                          tracks_per_day=(5, 2, 4, 4))
+    ds = read_freeboard_season(str(tmp_path), 125, "2018-2019")
+    thin = np.ones(ds.sie.shape[:2], bool)  # keep every 4th cell, as the wave season
+    thin[::4, ::4] = False
+    ds.sie[thin] = np.nan
+    cfg = DailyConfig(window_days=9, radius_km=450.0, buckets=(128, 256), dtype="float32",
+                      opt=OptimizeConfig(max_iters=10, nystroem_min_n=0), warmstart_n=0,
+                      spatial_seed_stride=0)
+    days = [0, 2]
+    counted = (blocked_gp._factor_invert, fused_gp.gp_predict, fused_gp.gp_nll,
+               fused_gp.gp_nll_and_grad)
+    before = [fn.launches for fn in counted]
+    serial = [interpolate_daily(ds, d, 0.15, cfg, device=card).to_reference_dict() for d in days]
+    wave = [r.to_reference_dict() for r in interpolate_days(ds, days, [0.15] * 2, cfg,
+                                                             device=card)]
+    launched = [fn.launches - b for fn, b in zip(counted, before)]
+    assert launched[0] == 0 and min(launched[1:]) > 0, launched
+    for w, s in zip(wave, serial):
+        assert list(w) == list(s) and len(w) == 15
+        interp = next(v for k, v in w.items() if k.endswith("_interp_smth"))
+        assert np.isfinite(interp).sum() > 20
+        for key in s:
+            np.testing.assert_array_equal(w[key], s[key], err_msg=key)

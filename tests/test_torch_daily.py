@@ -94,7 +94,7 @@ def test_chunking_is_invisible(caplog):
             ds, 0, 0.2, TD.DailyConfig(dtype="float64", buckets=(256,), max_chunk_bytes=4e6),
             precomputed_hypers=hyp, device="cpu",
         )
-    (n, cells, tile, _), = [r.args for r in caplog.records]
+    (n, cells, tile, _), = [r.args for r in caplog.records if not isinstance(r.args, dict)]
     assert n == 256 and cells == np.isfinite(ds.sie[:, :, 4]).sum()
     assert tile < cells  # several chunks, the last one padded
     np.testing.assert_allclose(many.interp, one.interp, atol=1e-12, rtol=0)
@@ -248,13 +248,19 @@ def test_cli_daily_writes_reference_pickle(tmp_path, capsys):
     capsys.readouterr()
     cli.main(["daily", "--datapath", d, "--grid-res", "200", "--fyi",
               os.path.join(d, "CS2_FYI_synthetic_200km.npy"), "--fyi-offset", "0",
-              "--hypers", os.path.join(d, "h.npz"), "--outdir", d, "--device", "cpu"])
+              "--hypers", os.path.join(d, "h.npz"), "--outdir", d, "--device", "cpu",
+              "--quicklook"])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["date"] == "20181205" and line["cells"] > 0
     with open(line["output"], "rb") as f:
         res = pickle.load(f)
     assert len(res) == 15 and f"{line['date']}_interp_error_smth" in res
     assert np.isfinite(res[f"{line['date']}_interp"]).sum() == line["cells"]
+    from optimalinterpolation_tpu_torch.io.quicklook import read_quicklook
+
+    q = read_quicklook(line["quicklook"])
+    assert q.date == line["date"] and line["quicklook"].endswith("_200km_quicklook.nc")
+    np.testing.assert_array_equal(q.radar_freeboard, res[f"{line['date']}_interp_smth"].T)
 
 
 def test_cli_daily_without_hypers_runs_the_two_pass_day(tmp_path, capsys):
@@ -282,6 +288,8 @@ def test_cli_daily_without_hypers_runs_the_two_pass_day(tmp_path, capsys):
 
 
 def test_port_never_imports_jax():
+    """Every module of the port, and chip_smoke.py, imports without JAX, the
+    JAX package or h5py (which only the quicklook NetCDFs need)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import optimalinterpolation_tpu_torch as p\n"
@@ -289,8 +297,11 @@ def test_port_never_imports_jax():
         "    if not m.name.endswith('__main__'):  # the CLI entry runs on import\n"
         "        importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "need = [p.__name__ + '.' + m for m in ('pipeline.multiday', 'pipeline.season', "
+        "'io.quicklook', 'data.projection')]\n"
+        "assert all(m in sys.modules for m in need), need\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
-        "'optimalinterpolation_tpu'))\n"
+        "'optimalinterpolation_tpu', 'h5py'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

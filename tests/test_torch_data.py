@@ -1,10 +1,14 @@
 """The port's copies of the numpy data plane give the JAX package's arrays.
 
-window / reader / synthetic / prior / regrid's nearest_fill must agree exactly. The JAX package
+window / reader / synthetic / prior / regrid's nearest_fill / projection
+and the quicklook NetCDF I/O must agree exactly. The JAX package
 gathers neighborhoods with its C++ grid hash where it is built, the port with
 SciPy's kd-tree: buckets, test inputs and cell order must agree exactly, and
 each row the same set of points (the order inside a row may differ).
 """
+
+import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -12,16 +16,20 @@ import torch
 
 from optimalinterpolation_tpu.data import neighbors as JN
 from optimalinterpolation_tpu.data import prior as JP
+from optimalinterpolation_tpu.data import projection as JPr
 from optimalinterpolation_tpu.data import reader as JR
 from optimalinterpolation_tpu.data import regrid as JG
 from optimalinterpolation_tpu.data import synthetic as JS
 from optimalinterpolation_tpu.data import window as JW
+from optimalinterpolation_tpu.io import quicklook as JQ
 from optimalinterpolation_tpu_torch.data import neighbors as TN
 from optimalinterpolation_tpu_torch.data import prior as TP
+from optimalinterpolation_tpu_torch.data import projection as TPr
 from optimalinterpolation_tpu_torch.data import reader as TR
 from optimalinterpolation_tpu_torch.data import regrid as TG
 from optimalinterpolation_tpu_torch.data import synthetic as TS
 from optimalinterpolation_tpu_torch.data import window as TW
+from optimalinterpolation_tpu_torch.io import quicklook as TQ
 
 torch.set_num_threads(2)
 
@@ -103,3 +111,49 @@ def test_nearest_fill_matches(masked):
     # 1-D coordinate vectors are meshed as the JAX package meshes them
     np.testing.assert_array_equal(TG.nearest_fill(field, x[:, 0], y[0]),
                                   JG.nearest_fill(field, x[:, 0], y[0]))
+
+
+def test_projection_and_grid_lonlat_match():
+    """The production 25 km grid: corner grids, lon/lat of the cells and the
+    forward projection back."""
+    a, b = JPr.north_polar_grid(25), TPr.north_polar_grid(25)
+    assert a[0].shape == (320, 320)
+    for ga, gb in zip(a, b):
+        np.testing.assert_array_equal(gb, ga)
+    lon, lat = TQ.grid_lonlat(a[0], a[1])
+    jlon, jlat = JQ.grid_lonlat(a[0], a[1])
+    np.testing.assert_array_equal(lon, jlon)
+    np.testing.assert_array_equal(lat, jlat)
+    assert 30.0 < lat.min() and lat.max() < 90.0
+    proj, jproj = TPr.PolarStereo.from_boundinglat(60.0), JPr.PolarStereo.from_boundinglat(60.0)
+    assert dataclasses.astuple(proj) == dataclasses.astuple(jproj)
+    for got, ref in zip(proj.forward(lon, lat), jproj.forward(lon, lat)):
+        np.testing.assert_array_equal(got, ref)
+
+
+def test_quicklook_round_trip_matches(tmp_path):
+    """A result written by either package reads back the same through both,
+    transposed to the reference's [iy, ix] layout, NaNs kept."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(3)
+    x, y, _, _ = TPr.north_polar_grid(500)
+    lon, lat = TQ.grid_lonlat(x, y)
+    field = rng.normal(0.2, 0.05, x.shape)
+    field[rng.random(x.shape) < 0.3] = np.nan
+    res = SimpleNamespace(date="20181205", interp_smth=field, interp_error_smth=np.abs(field) / 10)
+    paths = {}
+    for name, mod in (("jax", JQ), ("torch", TQ)):
+        d = tmp_path / name
+        d.mkdir()
+        paths[name] = mod.write_result_quicklook(res, lon, lat, 500, str(d))
+    assert os.path.basename(paths["torch"]) == os.path.basename(paths["jax"]) \
+        == "CS2S3_20181205_500km_quicklook.nc"
+    for path in paths.values():
+        for read in (JQ.read_quicklook, TQ.read_quicklook):
+            q = read(path)
+            assert q.date == "20181205"
+            np.testing.assert_array_equal(q.radar_freeboard, field.T)
+            np.testing.assert_array_equal(q.uncertainty, res.interp_error_smth.T)
+            np.testing.assert_array_equal(q.lat, lat.T)
+            np.testing.assert_array_equal(q.lon, lon.T)
