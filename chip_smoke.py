@@ -9,7 +9,8 @@ phase:
   2. build   K1, K2 and K3 compiled from csrc/ (seconds, ptxas register lines;
              0 spill bytes in each of the four kernels; HMMA tensor-core
              instructions in the SASS of K2 and both K3 variants, counted by
-             cuobjdump).
+             cuobjdump), and the host data plane (native/oi_native.cpp) by
+             g++.
   3. K1      1,024 random SPD blocks plus one non-PD block, against the
              float64 twin: |L L^T - D|_max <= 1e-5 |D|_max, |W L - I|_max <=
              1e-4, logdet within 1e-4 relative, ok identical; the day's
@@ -76,8 +77,31 @@ phase:
              ran, the chained wave ran no seed pass and no cascade, and a
              second call on the same directory resumes all four days with
              no launch at all. rmse vs the truth per day.
+ 10. chain   the production chain around the day, on the season phase's
+             season: (a) windows 0-3 gathered by ``gather_neighborhoods``
+             (the native grid hash, buckets filled by array indexing) and by
+             its plain version (SciPy's kd-tree, filled cell by cell as the
+             JAX package fills them), every array equal, seconds of each
+             beside the season waves' gather seconds; (b) ``bin`` on seeded
+             .proc files (2 days x 10 tracks x 20,000 rows, invalid flags,
+             out-of-range freeboards, nan tokens): fields equal to the
+             plain path (np.genfromtxt + bin_points) at NaNs in the same
+             places and rtol 1e-9, parse seconds native against genfromtxt;
+             (c) ``hypers`` over the four season pickles (4 days, finite
+             cells) and regridded onto a 50 km grid with the built-in ocean
+             mask; (d) the quicklook day through ``cli.main(["daily", ...,
+             "--hypers", H, "--prior-background", "9", "--profile", LOGDIR])``
+             at full width: 15 keys, every active cell finite, K1 and K2
+             launched and K3 not, 64 cells of each bucket within 1e-4 m of
+             the float64 twin at those hypers and that prior field, and the
+             Chrome trace under LOGDIR naming K1's and K2's kernels, with
+             their summed device ms; (e) ``validate`` on the truth at every
+             active cell of the four dates: its rmse within 1e-6 m of the
+             pooled rmse computed from the pickles directly.
 
-Then a ``{"kernels": [...]}`` line and, last, the device line
+The fit phase's day must also give an earlier run's launches and rmse to
+the bit (``EARLIER_FIT``): the gather's arrays do not depend on how it
+searches. Then a ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line; nothing is caught.
 """
@@ -168,6 +192,7 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    from optimalinterpolation_tpu_torch import native
     from optimalinterpolation_tpu_torch.ops import _cuda
 
     t0 = time.perf_counter()
@@ -185,7 +210,10 @@ def phase_build() -> None:
     if len(hmma) != 4 or any(hmma[k] == 0 for k in ("K2", "K3 value", "K3 grad")):
         _fail(f"K2 and both K3 variants must run their tile products on the tensor cores: "
               f"HMMA lines {hmma}")
-    _phase("build", seconds=secs, library=str(lib.name), ptxas=ptxas, hmma_lines=hmma)
+    t0 = time.perf_counter()
+    host_lib = native.build()  # the host data plane, with g++
+    _phase("build", seconds=secs, library=str(lib.name), ptxas=ptxas, hmma_lines=hmma,
+           native_library=host_lib.name, native_seconds=time.perf_counter() - t0)
 
 
 def _hmma_counts(lib) -> dict:
@@ -508,7 +536,7 @@ NLL_MEAN = 0.7  # the mean exact-NLL cost the JAX package accepted for its defau
 HYPERS = ("ell_x", "ell_y", "ell_t", "sf2", "sn2")
 
 
-def _run_daily(tmp: str, extra_argv: list):
+def _run_daily(tmp: str, extra_argv: list, prior_argv=("--prior-mean", str(PRIOR))):
     """``cli.main(["daily", ...])`` on the season in ``tmp`` with every
     launch count at 0 before and read after. Returns (result dict, date,
     launch counts, host synchronisations, wall seconds, log handler)."""
@@ -521,7 +549,7 @@ def _run_daily(tmp: str, extra_argv: list):
     log.addHandler(handler)
     log.setLevel(logging.INFO)
     argv = ["daily", "--datapath", tmp, "--grid-res", str(RES_KM), "--day", str(DAY),
-            "--prior-mean", str(PRIOR), "--outdir", tmp, *extra_argv]
+            *prior_argv, "--outdir", tmp, *extra_argv]
     _zero_counts()
     out = io.StringIO()
     t0 = time.perf_counter()
@@ -577,10 +605,15 @@ class _Day:
                 _fail(f"{key}: {int((~np.isfinite(field[self.active])).sum())} active cells "
                       "not finite")
 
-    def check_predict(self, res, date, hyper_suffix: str) -> dict:
+    def check_predict(self, res, date, hyper_suffix: str, prior_cells=None) -> dict:
         """64 cells of each bucket again through the float64 twin on the
-        card, at the hypers the pickle holds: {N: (cells, |d mean|, |d std|)}."""
+        card, at the hypers the pickle holds and the prior mean ``PRIOR``
+        or, where given, ``prior_cells`` (one per active cell): {N: (cells,
+        |d mean|, |d std|)}."""
         from optimalinterpolation_tpu_torch.ops import fused_gp
+
+        if prior_cells is None:
+            prior_cells = np.full(len(self.active_ij[0]), PRIOR)
 
         fs, es = res[f"{date}_interp_smth"], res[f"{date}_interp_error_smth"]
         check = {}
@@ -593,7 +626,7 @@ class _Day:
                 r = rows[s:s + step]
                 args = [torch.from_numpy(lh[s:s + step])] + [
                     torch.from_numpy(a[r]) for a in (b.x, b.z, b.xstar, b.mask)
-                ] + [torch.full((len(r),), PRIOR)]
+                ] + [torch.from_numpy(prior_cells[b.cell_index[r]].astype(np.float32))]
                 ref = fused_gp.gp_predict_plain(*[a.double().cuda() for a in args], jitter=1e-6)
                 if not bool(ref.ok.all()):
                     _fail(f"N={b.capacity}: the float64 twin failed to factor a cell")
@@ -749,6 +782,14 @@ def _stage_entries(records) -> list:
     return stages
 
 
+# The fit phase's day as an earlier run gave it (PERF.md section 5: NVIDIA
+# H100 80GB HBM3, 700.00 W). The buckets the day fits and predicts are the
+# same arrays whichever gather builds them, so launches and rmse hold to the
+# bit.
+EARLIER_FIT = {"launches": {"K1": 1600, "K2": 8, "K3 value": 5133, "K3 grad": 672},
+               "rmse_vs_truth_m": 0.011036935579973184}
+
+
 def phase_fit(tmp: str, day: _Day) -> dict:
     torch.cuda.reset_peak_memory_stats()
     res, date, launches, syncs, day_s, handler = _run_daily(tmp, [])
@@ -770,6 +811,10 @@ def phase_fit(tmp: str, day: _Day) -> dict:
     day.check_finite(res, date, [k[len(date) + 1:] for k in res])
     if min(launches.values()) == 0:
         _fail(f"the two-pass day did not launch every kernel: {launches}")
+    rmse = day.rmse(res[f"{date}_interp_smth"])
+    if launches != EARLIER_FIT["launches"] or rmse != EARLIER_FIT["rmse_vs_truth_m"]:
+        _fail(f"the day moved off the earlier run's: launches {launches}, rmse {rmse!r} "
+              f"(earlier {EARLIER_FIT})")
     check = day.check_predict(res, date, "_smth")
     optimum = _check_optimum(day, res, date)
     _phase("fit_check",
@@ -1317,78 +1362,78 @@ def _run_season(ds, outdir: str):
     return res, lines
 
 
-def phase_season(fit: dict) -> dict:
-    """The season phase (see the module docstring). Returns each kernel's
-    launches in the cold and the chained wave."""
+def phase_season(fit: dict, tmp: str) -> dict:
+    """The season phase (see the module docstring), on a season it writes in
+    ``tmp`` with its pickles under ``tmp/season``. Returns each kernel's
+    launches and the host gather seconds in the cold and the chained wave."""
     from optimalinterpolation_tpu_torch.data.reader import read_freeboard_season
     from optimalinterpolation_tpu_torch.data.synthetic import make_synthetic_season
     from optimalinterpolation_tpu_torch.io.pickles import load_pickle
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        make_synthetic_season(tmp, grid_res_km=RES_KM, n_days=SEASON_DAYS, seed=7,
-                              tracks_per_day=(10, 3, 8, 8), noise_std=0.1)
-        make_s = time.perf_counter() - t0
-        ds = read_freeboard_season(tmp, RES_KM, "2018-2019")
-        out = os.path.join(tmp, "season")
-        handler = _DailyLog()
-        log = logging.getLogger("optimalinterpolation_tpu_torch.pipeline.daily")
-        log.addHandler(handler)
-        log.setLevel(logging.INFO)
-        probe = _SeasonProbe(handler)
-        try:
-            _zero_counts()
-            t0 = time.perf_counter()
-            results, lines = _run_season(ds, out)
-            season_s = time.perf_counter() - t0
-            launches = _counts()
-            waves = [probe.report(j) for j in range(len(probe.waves))]
-        finally:
-            probe.close()
-            log.removeHandler(handler)
-        for w in waves:
-            _phase("season_wave", **w)
-        if [w["windows"] for w in waves] != [[0, 2], [1, 3]] or len(results) != 4:
-            _fail(f"the season ran {[w['windows'] for w in waves]}, not windows [0, 2], [1, 3]")
-        chained = [e["stage"] for e in waves[1]["stages"]]
-        if any(st.startswith("seed:") or st == "cascade" for st in chained):
-            _fail(f"the chained wave ran a seed pass or a cascade: {chained}")
-        if min(launches.values()) == 0:
-            _fail(f"the season did not launch every kernel: {launches}")
-
-        days = {w: _Day(tmp, w) for w in SEASON_WINDOWS}
-        fit_batches = {}
-        for wave in ([0, 2], [1, 3]):
-            for w, b in zip(wave, _wave_fit_batches([days[w] for w in wave])):
-                fit_batches[w] = b
-        checks = {}
-        for w, day in days.items():
-            res = load_pickle(os.path.join(out, f"CS2S3_{day.date}_{RES_KM}km.pkl"))
-            if len(res) != 15:
-                _fail(f"{day.date}: the pickle has {len(res)} keys, not 15")
-            day.check_finite(res, day.date, [k[len(day.date) + 1:] for k in res])
-            check = day.check_predict(res, day.date, "_smth")
-            checks[day.date] = {
-                "window": w, "active_cells": int(day.active.sum()),
-                "rmse_vs_truth_m": day.rmse(res[f"{day.date}_interp_smth"]),
-                "rmse_pass1_vs_truth_m": day.rmse(res[f"{day.date}_interp"]),
-                "pass2_vs_f64": {str(n): {"cells": c, "d_mean": dm, "d_std": ds_}
-                                 for n, (c, dm, ds_) in check.items()}}
-            t_opt = time.perf_counter()
-            optimum = _check_optimum(day, res, day.date, fit_batches[w])
-            checks[day.date]["optimum_vs_f64"] = {str(n): v for n, v in optimum.items()}
-            checks[day.date]["optimum_check_s"] = time.perf_counter() - t_opt
-            _gate_optimum(optimum, day.date)
-        _phase("season_check", days=checks)
-
-        # a second call on the same directory: every day resumed, nothing launched
+    t0 = time.perf_counter()
+    make_synthetic_season(tmp, grid_res_km=RES_KM, n_days=SEASON_DAYS, seed=7,
+                          tracks_per_day=(10, 3, 8, 8), noise_std=0.1)
+    make_s = time.perf_counter() - t0
+    ds = read_freeboard_season(tmp, RES_KM, "2018-2019")
+    out = os.path.join(tmp, "season")
+    handler = _DailyLog()
+    log = logging.getLogger("optimalinterpolation_tpu_torch.pipeline.daily")
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    probe = _SeasonProbe(handler)
+    try:
         _zero_counts()
-        again, again_lines = _run_season(ds, out)
-        resumed = _counts()
-        if again or any(resumed.values()) or sum("skipping (resume)" in s
-                                                 for s in again_lines) != 4:
-            _fail(f"the second season call did not resume all four days: {len(again)} days "
-                  f"run, launches {resumed}, log {again_lines}")
+        t0 = time.perf_counter()
+        results, lines = _run_season(ds, out)
+        season_s = time.perf_counter() - t0
+        launches = _counts()
+        waves = [probe.report(j) for j in range(len(probe.waves))]
+    finally:
+        probe.close()
+        log.removeHandler(handler)
+    for w in waves:
+        _phase("season_wave", **w)
+    if [w["windows"] for w in waves] != [[0, 2], [1, 3]] or len(results) != 4:
+        _fail(f"the season ran {[w['windows'] for w in waves]}, not windows [0, 2], [1, 3]")
+    chained = [e["stage"] for e in waves[1]["stages"]]
+    if any(st.startswith("seed:") or st == "cascade" for st in chained):
+        _fail(f"the chained wave ran a seed pass or a cascade: {chained}")
+    if min(launches.values()) == 0:
+        _fail(f"the season did not launch every kernel: {launches}")
+
+    days = {w: _Day(tmp, w) for w in SEASON_WINDOWS}
+    fit_batches = {}
+    for wave in ([0, 2], [1, 3]):
+        for w, b in zip(wave, _wave_fit_batches([days[w] for w in wave])):
+            fit_batches[w] = b
+    checks = {}
+    for w, day in days.items():
+        res = load_pickle(os.path.join(out, f"CS2S3_{day.date}_{RES_KM}km.pkl"))
+        if len(res) != 15:
+            _fail(f"{day.date}: the pickle has {len(res)} keys, not 15")
+        day.check_finite(res, day.date, [k[len(day.date) + 1:] for k in res])
+        check = day.check_predict(res, day.date, "_smth")
+        checks[day.date] = {
+            "window": w, "active_cells": int(day.active.sum()),
+            "rmse_vs_truth_m": day.rmse(res[f"{day.date}_interp_smth"]),
+            "rmse_pass1_vs_truth_m": day.rmse(res[f"{day.date}_interp"]),
+            "pass2_vs_f64": {str(n): {"cells": c, "d_mean": dm, "d_std": ds_}
+                             for n, (c, dm, ds_) in check.items()}}
+        t_opt = time.perf_counter()
+        optimum = _check_optimum(day, res, day.date, fit_batches[w])
+        checks[day.date]["optimum_vs_f64"] = {str(n): v for n, v in optimum.items()}
+        checks[day.date]["optimum_check_s"] = time.perf_counter() - t_opt
+        _gate_optimum(optimum, day.date)
+    _phase("season_check", days=checks)
+
+    # a second call on the same directory: every day resumed, nothing launched
+    _zero_counts()
+    again, again_lines = _run_season(ds, out)
+    resumed = _counts()
+    if again or any(resumed.values()) or sum("skipping (resume)" in s
+                                             for s in again_lines) != 4:
+        _fail(f"the second season call did not resume all four days: {len(again)} days "
+              f"run, launches {resumed}, log {again_lines}")
     _phase("season", windows=SEASON_WINDOWS, day_parallel=DAY_PARALLEL,
            synthetic_season_s=make_s, season_call_s=season_s, log=lines,
            launches=launches, resume={"days_run": 0, "launches": resumed},
@@ -1403,7 +1448,247 @@ def phase_season(fit: dict) -> dict:
                                 "k3_value_launches_a_cell":
                                     fit["k3_value_launches"] / fit["cells"]},
            single_day_earlier=EARLIER_DAY)
-    return {"cold": waves[0]["launches"], "chained": waves[1]["launches"]}
+    return {"cold": waves[0]["launches"], "chained": waves[1]["launches"],
+            "gather_s": {name: waves[j]["host_outside_stages_s"]["gather"]
+                         for j, name in enumerate(("cold", "chained"))},
+            "days": days}
+
+
+# ---------------------------------------------------------------------------
+# chain: bin, hypers, the quicklook day at seasonal hypers, validate
+# ---------------------------------------------------------------------------
+
+# The season phase's gather seconds a wave when the gather took SciPy's
+# kd-tree and filled its buckets cell by cell (PERF.md section 5: NVIDIA H100
+# 80GB HBM3, 700.00 W), printed beside this run's.
+EARLIER_GATHER_S = {"cold": 12.46, "chained": 10.55}
+BIN_DAYS, BIN_TRACKS, BIN_ROWS = 2, 10, 20_000
+BIN_MONTH = "201811"  # the first month of the 2018-2019 season table
+
+
+def _cli(argv: list) -> tuple:
+    """``cli.main(argv)``: (its last JSON line, wall seconds)."""
+    from optimalinterpolation_tpu_torch import cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    return json.loads(out.getvalue().strip().splitlines()[-1]), time.perf_counter() - t0
+
+
+def _chain_gather(ds) -> list:
+    """Windows 0-3 of the season: ``gather_neighborhoods`` (the native grid
+    hash and array fill) against its plain version (the kd-tree lists
+    filled cell by cell, as the JAX package's gather fills them), every
+    array of every bucket equal; the seconds of each and of the two
+    neighbour searches alone."""
+    from optimalinterpolation_tpu_torch import native
+    from optimalinterpolation_tpu_torch.data import neighbors
+    from optimalinterpolation_tpu_torch.data.window import flatten_window
+    from optimalinterpolation_tpu_torch.pipeline.daily import DailyConfig
+
+    cfg = DailyConfig()
+    kw = dict(t_star=float(cfg.t_mid), radius_m=cfg.radius_km * 1e3, buckets=cfg.buckets,
+              batch_multiple=cfg.batch_multiple, dtype=np.float32)
+    out = []
+    for w in SEASON_WINDOWS:
+        train = flatten_window(ds.obs[:, :, :, w:w + cfg.window_days], ds.x, ds.y)
+        ij = np.nonzero(np.isfinite(ds.sie[:, :, w + cfg.t_mid]))
+        cells = np.stack([ds.x[ij], ds.y[ij]], axis=1)
+        secs = {}
+        for name, fn in (("search_native_s", lambda: native.radius_neighbors(
+                              train.xy, cells, kw["radius_m"])),
+                         ("search_kdtree_s", lambda: neighbors._neighbor_lists_kdtree(
+                              train, cells, kw["radius_m"])),
+                         ("gather_s", lambda: neighbors.gather_neighborhoods(train, cells, **kw)),
+                         ("gather_plain_s", lambda: neighbors._gather_plain(train, cells, **kw))):
+            t0 = time.perf_counter()
+            secs[name] = (fn(), time.perf_counter() - t0)
+        got, ref = secs["gather_s"][0], secs["gather_plain_s"][0]
+        if [b.capacity for b in got] != [b.capacity for b in ref]:
+            _fail(f"window {w}: buckets {[b.capacity for b in got]} != the plain gather's")
+        for g, r in zip(got, ref):
+            for name in ("x", "z", "mask", "xstar", "cell_index", "n_valid_cells"):
+                a, b = getattr(g, name), getattr(r, name)
+                if not (np.array_equal(a, b) and np.asarray(a).dtype == np.asarray(b).dtype):
+                    _fail(f"window {w} N={r.capacity}: {name} differs from the plain gather's")
+        out.append({"window": w, "points": len(train), "cells": len(cells),
+                    "neighbours_mean": float(np.diff(secs["search_native_s"][0][0]).mean()),
+                    "buckets": {str(b.capacity): b.n_valid_cells for b in got},
+                    **{k: v[1] for k, v in secs.items()}})
+    return out
+
+
+def _write_proc_files(raw: str) -> dict:
+    """``.proc`` text from seed 7, as ``tests/test_data_plane.py::
+    test_proc_flow`` writes it (8 columns, freeboard in column 4, the flag in
+    column 7): BIN_DAYS days x BIN_TRACKS tracks x BIN_ROWS rows, a fifth of
+    the flags invalid, freeboards drawn past both limits, 1% ``nan``
+    tokens. Returns {date: [paths]}."""
+    rng = np.random.default_rng(7)
+    os.makedirs(os.path.join(raw, BIN_MONTH))
+    files = {}
+    for day in range(1, BIN_DAYS + 1):
+        date = f"{BIN_MONTH}{day:02d}"
+        for track in range(BIN_TRACKS):
+            cols = np.zeros((BIN_ROWS, 8))
+            cols[:, 0] = rng.uniform(-180, 180, BIN_ROWS)
+            cols[:, 1] = rng.uniform(62, 89, BIN_ROWS)
+            cols[:, 2:4] = rng.normal(size=(BIN_ROWS, 2))
+            cols[:, 4] = rng.uniform(-0.5, 0.8, BIN_ROWS)
+            cols[:, 5:7] = rng.normal(size=(BIN_ROWS, 2))
+            cols[:, 7] = rng.choice([1, 2], BIN_ROWS, p=[0.2, 0.8])
+            cols[rng.random(BIN_ROWS) < 0.01, 4] = np.nan
+            path = os.path.join(raw, BIN_MONTH, f"CS2_{track:02d}_{date}_v1.proc")
+            np.savetxt(path, cols, fmt="%.9g")
+            files.setdefault(date, []).append(path)
+    return files
+
+
+def _chain_bin(tmp: str) -> dict:
+    """The ``bin`` command on seeded ``.proc`` files against the plain path
+    (``np.genfromtxt``, the validity filter, the projection, ``bin_points``)."""
+    from optimalinterpolation_tpu_torch import native
+    from optimalinterpolation_tpu_torch.data.binner import FB_MAX, FB_MIN, VALID_FLAG, bin_points
+    from optimalinterpolation_tpu_torch.data.projection import PolarStereo
+    from optimalinterpolation_tpu_torch.io.pickles import load_pickle
+
+    raw, binned = os.path.join(tmp, "raw"), os.path.join(tmp, "binned")
+    t0 = time.perf_counter()
+    files = _write_proc_files(raw)
+    write_s = time.perf_counter() - t0
+    line, bin_s = _cli(["bin", "--datapath", raw, "--outdir", binned, "--sat", "CS2_SAR",
+                        "--grid-res", str(RES_KM)])
+    if line != {"days_binned": BIN_DAYS}:
+        _fail(f"bin: {line}")
+    fields = load_pickle(os.path.join(binned, f"CS2_SAR_dailyFB_{RES_KM}km_2018-2019_season.pkl"))
+    proj = PolarStereo.from_boundinglat(60.0, 0.0)
+    checked = {}
+    for date, paths in files.items():
+        t0 = time.perf_counter()
+        for path in paths:
+            native.parse_proc(path)
+        parse_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        data = np.concatenate([np.genfromtxt(path) for path in paths])
+        genfromtxt_s = time.perf_counter() - t0
+        fb = data[:, 4]
+        keep = (data[:, 7] == VALID_FLAG) & (fb >= FB_MIN) & (fb <= FB_MAX) & np.isfinite(fb)
+        x, y = proj.forward(data[keep, 0], data[keep, 1])
+        ref = bin_points(x, y, fb[keep], RES_KM)
+        got = fields[date]
+        if not np.array_equal(np.isnan(got), np.isnan(ref)):
+            _fail(f"bin {date}: NaN cells differ from the plain path's")
+        fin = np.isfinite(ref)
+        err = float(np.max(np.abs(got[fin] - ref[fin]) / np.abs(ref[fin]).clip(1e-300)))
+        if not err <= 1e-9:
+            _fail(f"bin {date}: relative deviation {err} from the plain path > 1e-9")
+        checked[date] = {"rows": len(data), "valid_rows": int(keep.sum()),
+                         "cells": int(fin.sum()), "max_rel_dev": err,
+                         "parse_native_s": parse_s, "parse_genfromtxt_s": genfromtxt_s}
+    return {"files": sum(len(v) for v in files.values()), "rows_a_file": BIN_ROWS,
+            "write_s": write_s, "bin_command_s": bin_s, "days": checked}
+
+
+def phase_chain(tmp: str, season: dict) -> dict:
+    """Phase 10 (see the module docstring) on the season phase's season in
+    ``tmp``. Returns the quicklook day's launches."""
+    from optimalinterpolation_tpu_torch.data.prior import background_prior
+    from optimalinterpolation_tpu_torch.data.reader import read_freeboard_season
+    from optimalinterpolation_tpu_torch.data.synthetic import make_synthetic_season
+    from optimalinterpolation_tpu_torch.io.pickles import load_pickle
+    from optimalinterpolation_tpu_torch.io.quicklook import grid_lonlat
+    from optimalinterpolation_tpu_torch.pipeline.daily import _prior_at_cells
+
+    t_phase = time.perf_counter()
+    ds = read_freeboard_season(tmp, RES_KM, "2018-2019")
+    season_out = os.path.join(tmp, "season")
+    gather = _chain_gather(ds)
+    _phase("chain_gather", windows=gather, gather_s_by_wave=season["gather_s"],
+           gather_s_by_wave_earlier=EARLIER_GATHER_S)
+    binned = _chain_bin(tmp)
+    _phase("chain_bin", **binned)
+
+    # hypers: the season's four pickles, on the 25 km grid and regridded to 50 km
+    hyp = os.path.join(tmp, "hypers_25km.npz")
+    hypers, hypers_s = _cli(["hypers", "--indir", season_out, "--grid-res", str(RES_KM),
+                             "--out", hyp])
+    if hypers["days"] != len(SEASON_WINDOWS) or hypers["finite_cells"] == 0:
+        _fail(f"hypers: {hypers}")
+    grid50 = os.path.join(tmp, "grid50")
+    make_synthetic_season(grid50, grid_res_km=50, n_days=N_DAYS, seed=7,
+                          tracks_per_day=(10, 3, 8, 8), noise_std=0.1)
+    hypers50, hypers50_s = _cli(["hypers", "--indir", season_out, "--grid-res", str(RES_KM),
+                                 "--out", os.path.join(tmp, "hypers_50km.npz"), "--datapath",
+                                 tmp, "--target-grid-res", "50", "--target-datapath", grid50,
+                                 "--ocean-mask", "builtin"])
+    if hypers50["shape"] != [160, 160] or hypers50["finite_cells"] == 0:
+        _fail(f"hypers onto 50 km: {hypers50}")
+    _phase("chain_hypers", grid_25km={**hypers, "seconds": hypers_s},
+           regrid_50km_builtin_mask={**hypers50, "seconds": hypers50_s})
+
+    # the quicklook day at the seasonal hypers and the background prior, profiled
+    logdir = os.path.join(tmp, "profile")
+    res, date, launches, _, day_s, handler = _run_daily(
+        tmp, ["--hypers", hyp, "--profile", logdir], prior_argv=("--prior-background", "9"))
+    day = _Day(tmp, DAY)
+    day.check_finite(res, date, ("interp", "interp_error", "lZ", "interp_smth",
+                                 "interp_error_smth"))
+    if launches["K1"] == 0 or launches["K2"] == 0 or launches["K3 value"] + launches["K3 grad"]:
+        _fail(f"the quicklook day must launch K1 and K2 and not K3: {launches}")
+    _, lat = grid_lonlat(ds.x, ds.y)
+    prior_cells, _ = _prior_at_cells(background_prior(ds.obs, lat, n_days=9),
+                                     day.active.shape, day.active_ij)
+    check = day.check_predict(res, date, "_smth", prior_cells)
+    traces = [f for f in os.listdir(logdir) if f.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        _fail(f"--profile wrote {traces} under its log directory, not one trace")
+    with open(os.path.join(logdir, traces[0])) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    names = {"K1": "k1_factor_invert_kernel", "K2": "k2_predict_kernel", "K3": "k3_nll_kernel"}
+    in_trace = {k: {"events": sum(v in e["name"] for e in events),
+                    "device_ms": sum(e["dur"] for e in events if v in e["name"]) / 1e3}
+                for k, v in names.items()}
+    if not (in_trace["K1"]["events"] and in_trace["K2"]["events"]):
+        _fail(f"the trace names no K1 or no K2 kernel: {in_trace}")
+    _phase("chain_quicklook", date=date, active_cells=int(day.active.sum()), day_wall_s=day_s,
+           launches=launches, trace_kernels=in_trace,
+           trace_device_ms_all_kernels=sum(e["dur"] for e in events) / 1e3,
+           trace_kernel_events=len(events), trace_mb=os.path.getsize(
+               os.path.join(logdir, traces[0])) / 1e6,
+           rmse_vs_truth_m=day.rmse(res[f"{date}_interp_smth"]),
+           buckets=[{"n": n, "cells": c, "wall_s": w} for n, c, _, w in handler.buckets],
+           pass2_vs_f64={str(n): {"cells": c, "d_mean": dm, "d_std": ds_}
+                         for n, (c, dm, ds_) in check.items()})
+
+    # validate: the truth at every active cell of the four dates
+    gx = np.load(os.path.join(tmp, f"x_{RES_KM}km.npy"))[:, 0]
+    gy = np.load(os.path.join(tmp, f"y_{RES_KM}km.npy"))[0, :]
+    pts = {"x": [], "y": [], "value": [], "date": []}
+    errs = []
+    for w in SEASON_WINDOWS:
+        d = season["days"][w]
+        ix, iy = d.active_ij
+        pts["x"].append(gx[ix])
+        pts["y"].append(gy[iy])
+        pts["value"].append(d.truth[ix, iy])
+        pts["date"].append(np.full(ix.shape, d.date, dtype="U8"))
+        field = load_pickle(os.path.join(season_out, f"CS2S3_{d.date}_{RES_KM}km.pkl"))
+        errs.append(field[f"{d.date}_interp"][ix, iy] - d.truth[ix, iy])
+    points = os.path.join(tmp, "points.npz")
+    np.savez(points, **{k: np.concatenate(v) for k, v in pts.items()})
+    stats, validate_s = _cli(["validate", "--indir", season_out, "--datapath", tmp,
+                              "--grid-res", str(RES_KM), "--points", points])
+    err = np.concatenate(errs)
+    pooled = float(np.sqrt(np.mean(err ** 2)))
+    if not (stats["n"] == err.size and stats["coverage"] == 1.0
+            and abs(stats["rmse"] - pooled) <= 1e-6):
+        _fail(f"validate: {stats} against the pooled rmse {pooled} over {err.size} cells")
+    _phase("chain_validate", seconds=validate_s, pooled_rmse_m=pooled,
+           **{k: stats[k] for k in ("days", "n", "bias", "rmse", "corr", "coverage", "mean_z")})
+    _phase("chain", seconds=time.perf_counter() - t_phase, launches=launches)
+    return launches
 
 
 def main() -> int:
@@ -1424,12 +1709,15 @@ def main() -> int:
         quick = phase_slice(tmp, day)
         fit = phase_fit(tmp, day)
         objectives = phase_objectives(day)
-    season = phase_season(fit)
+    with tempfile.TemporaryDirectory() as tmp:
+        season = phase_season(fit, tmp)
+        chain = phase_chain(tmp, season)
 
     def paths(name):
         return {"launches": fit[name], "launches_by_path": {
             "quicklook": quick[name], "fit": fit[name],
-            "season": {wave: season[wave][name] for wave in ("cold", "chained")}}}
+            "season": {wave: season[wave][name] for wave in ("cold", "chained")},
+            "chain": chain[name]}}
 
     k1_paths = paths("K1")
     k1_paths["launches_by_path"].update(objectives)
@@ -1438,12 +1726,13 @@ def main() -> int:
         {"name": "K1 factor_invert_128", "route": "cuda",
          "source": "optimalinterpolation_tpu_torch/csrc/k1_factor_invert.cu",
          "replaces": "optimalinterpolation_tpu/ops/blocked_gp.py:80", **k1_paths,
-         "launched_by": ["blocked predict (quicklook, fit, season waves)", "blocked objective",
+         "launched_by": ["blocked predict (quicklook, fit, season waves, chain)",
+                         "blocked objective",
                          "Nystrom chol_inv"], **k1},
         {"name": "K2 fused predict", "route": "cuda",
          "source": "optimalinterpolation_tpu_torch/csrc/k2_predict.cu",
          "replaces": "optimalinterpolation_tpu/ops/pallas_gp.py:795", **paths("K2"),
-         "launched_by": ["fused predict (quicklook, fit)", waves], **k2},
+         "launched_by": ["fused predict (quicklook, fit, chain)", waves], **k2},
         {"name": "K3 fused NLL + gradient", "route": "cuda",
          "source": "optimalinterpolation_tpu_torch/csrc/k3_nll_grad.cu",
          "replaces": "optimalinterpolation_tpu/ops/pallas_gp.py:501",
@@ -1452,7 +1741,9 @@ def main() -> int:
                                                       "grad": fit["K3 grad"]},
                               "season": {wave: {"value": season[wave]["K3 value"],
                                                 "grad": season[wave]["K3 grad"]}
-                                         for wave in ("cold", "chained")}},
+                                         for wave in ("cold", "chained")},
+                              "chain": {"value": chain["K3 value"],
+                                        "grad": chain["K3 grad"]}},
          "launched_by": ["fit (seed pass, cascade, fine stage)", waves], **k3},
     ]
     print(json.dumps({"kernels": kernels}))

@@ -12,10 +12,14 @@ Layer map:
   ops/       covariance kernels, masked linalg, blocked and fused predict,
              the CUDA build (ops/_cuda.py)
   models/    exact GP predict, batched predict routing
-  data/      window flattening, neighborhood gather, reader, prior, synthetic
-  io/        reference-compatible pickles
-  pipeline/  the quicklook daily field
-  csrc/      CUDA C++ sources of K1 and K2 (sm_90a)
+  data/      window flattening, neighborhood gather, reader, priors, binner,
+             regrid and the ocean mask, synthetic seasons
+  native/    the C++ host data plane (radius search, .proc parser), g++
+  io/        reference-compatible pickles, quicklook NetCDFs
+  pipeline/  the day, waves of days, the season
+  utils/     stage timers, the profiler trace
+  csrc/      CUDA C++ sources of K1, K2 and K3 (sm_90a)
+  validation.py, cli.py
 """
 
 __version__ = "0.1.0"

@@ -8,12 +8,21 @@
   python -m optimalinterpolation_tpu_torch season ... [--day-parallel W]
                                    a season of daily fields, chained day to
                                    day, in strided waves of W days
+  python -m optimalinterpolation_tpu_torch bin     along-track binning of .proc
+                                   files into a season pickle
+  python -m optimalinterpolation_tpu_torch hypers  seasonal-average hyperparameter
+                                   .npz from per-day result pickles, optionally
+                                   regridded (for ``--hypers``)
+  python -m optimalinterpolation_tpu_torch validate
+                                   skill of per-day results against point
+                                   observations
   python -m optimalinterpolation_tpu_torch synth   synthetic season generator
 
-Argument names and defaults follow ``optimalinterpolation_tpu/cli.py`` for
-the arguments kept. ``--hypers`` takes the ``.npz`` that the JAX package's
-``hypers`` subcommand writes. ``--device`` picks the card or, for tests and
-small runs, ``cpu``.
+Argument names, defaults and JSON output lines follow
+``optimalinterpolation_tpu/cli.py`` for the commands and arguments kept.
+``--hypers`` takes the ``.npz`` that either package's ``hypers`` command
+writes. ``--device`` picks the card or, for tests and small runs, ``cpu``;
+``--profile LOGDIR`` writes a ``torch.profiler`` Chrome trace of the run.
 """
 
 from __future__ import annotations
@@ -57,6 +66,12 @@ def _add_daily_args(p):
     p.add_argument("--prior-mean", type=float, default=None,
                    help="constant prior mean; otherwise --fyi is used")
     p.add_argument("--fyi", default=None, help="CS2 FYI .npy for the prior")
+    p.add_argument("--prior-background", type=int, default=None,
+                   metavar="N_DAYS",
+                   help="spatially varying prior: the first-N_DAYS "
+                        "all-satellite mean field with pole-hole fill "
+                        "(dev/sparseGP_example.ipynb cell-1 background/"
+                        "priorXS; reference uses 31 days)")
     p.add_argument("--fyi-offset", type=int, default=16,
                    help="FYI product start relative to the season start "
                         "(reference product: 16; synthetic/aligned: 0)")
@@ -68,21 +83,43 @@ def _add_daily_args(p):
     p.add_argument("--device", default="cuda",
                    help="torch device that runs the fit and the predict "
                         "(default cuda)")
+    p.add_argument("--profile", default=None, metavar="LOGDIR",
+                   help="write a torch.profiler trace of the run (host, and "
+                        "the card's kernels) to LOGDIR (TensorBoard/Perfetto)")
     p.add_argument("--verbose", action="store_true",
                    help="per-stage and per-bucket INFO logs (cells, tiles, "
                         "iterations, seconds)")
 
 
-def _prior(args):
-    """The day -> prior mean function the arguments ask for."""
+def _prior(args, ds):
+    """The day -> prior mean function the arguments ask for: a scalar or,
+    with ``--prior-background``, one (G, G) field for every day."""
     if args.prior_mean is not None:
         return lambda day: args.prior_mean
+    if args.prior_background:
+        from optimalinterpolation_tpu_torch.data.prior import background_prior
+        from optimalinterpolation_tpu_torch.io.quicklook import grid_lonlat
+
+        _, lat = grid_lonlat(ds.x, ds.y)
+        field = background_prior(ds.obs, lat, n_days=args.prior_background)
+        return lambda day: field
     if args.fyi is not None:
         from optimalinterpolation_tpu_torch.data.prior import constant_fyi_prior
 
         fyi = np.load(args.fyi)
         return lambda day: constant_fyi_prior(fyi, day, offset=args.fyi_offset)
     raise SystemExit("provide --prior-mean or --fyi")
+
+
+def _profile(args):
+    """The ``--profile`` trace around the run, else nothing."""
+    import contextlib
+
+    if args.profile:
+        from optimalinterpolation_tpu_torch.utils.profiling import trace
+
+        return trace(args.profile)
+    return contextlib.nullcontext()
 
 
 def _setup(args):
@@ -122,10 +159,10 @@ def cmd_daily(args):
     from optimalinterpolation_tpu_torch.pipeline.daily import interpolate_daily
 
     ds, cfg = _setup(args)
-    res = interpolate_daily(
-        ds, args.day, _prior(args)(args.day), cfg,
-        precomputed_hypers=args.hypers, device=args.device,
-    )
+    prior = _prior(args, ds)(args.day)
+    with _profile(args):
+        res = interpolate_daily(ds, args.day, prior, cfg,
+                                precomputed_hypers=args.hypers, device=args.device)
     os.makedirs(args.outdir, exist_ok=True)
     out = os.path.join(args.outdir, f"CS2S3_{res.date}_{ds.grid_res_km}km.pkl")
     save_pickle(res.to_reference_dict(), out)
@@ -169,8 +206,112 @@ def cmd_season(args):
     ds, daily = _setup(args)
     cfg = SeasonConfig(daily=daily, outdir=args.outdir, resume=not args.no_resume,
                        day_parallel=args.day_parallel)
-    run_season(ds, cfg, days=args.days, prior_fn=_prior(args),
-               precomputed_hypers=args.hypers, device=args.device)
+    prior_fn = _prior(args, ds)
+    with _profile(args):
+        run_season(ds, cfg, days=args.days, prior_fn=prior_fn,
+                   precomputed_hypers=args.hypers, device=args.device)
+
+
+def _scan_results(indir: str, grid_res: int) -> list[tuple[str, str]]:
+    """Sorted (date, path) pairs for per-day result pickles in ``indir``;
+    non-conforming filenames matched by the glob are reported and skipped."""
+    import glob
+    import re
+
+    out = []
+    for f in sorted(glob.glob(os.path.join(indir, f"CS2S3_*_{grid_res}km.pkl"))):
+        m = re.search(r"CS2S3_(\d{8})_", os.path.basename(f))
+        if not m:
+            print(f"skipping non-conforming result file: {f}", file=sys.stderr)
+            continue
+        out.append((m.group(1), f))
+    if not out:
+        raise SystemExit(f"no CS2S3_YYYYMMDD_{grid_res}km.pkl in {indir}")
+    return out
+
+
+def _grid_axes(datapath: str, grid_res: int):
+    """1-D cell-coordinate axes from the x_/y_{res}km.npy grids
+    ([ix, iy] layout: x varies along axis 0, y along axis 1)."""
+    x = np.load(os.path.join(datapath, f"x_{grid_res}km.npy"))[:, 0]
+    y = np.load(os.path.join(datapath, f"y_{grid_res}km.npy"))[0, :]
+    return x, y
+
+
+def cmd_hypers(args):
+    """Seasonal-average hyperparameter fields -> ``.npz`` (quicklook scheme).
+
+    The reference's quicklook production skips per-cell optimization and
+    reuses seasonal-average hyperparameters from 50 km runs regridded to the
+    25 km grid (``QuickLook Data/README.txt:1``; ``GPR3D(opt=False)``,
+    ``GPR_CS2S3.py:170-172``). Averages the (smoothed) hyper fields of saved
+    per-day result pickles, optionally regrids them to a target resolution,
+    and writes the ``.npz`` that ``daily``/``season`` take with ``--hypers``.
+    """
+    import warnings
+
+    from optimalinterpolation_tpu_torch.io.pickles import load_pickle
+    from optimalinterpolation_tpu_torch.pipeline.daily import HYPER_NAMES
+
+    files = _scan_results(args.indir, args.grid_res)
+    suffix = "" if args.raw else "_smth"
+    stacks = {n: [] for n in HYPER_NAMES}
+    for date, f in files:
+        d = load_pickle(f)
+        for n in HYPER_NAMES:
+            stacks[n].append(np.asarray(d[f"{date}_{n}{suffix}"], np.float64))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # all-NaN pixels
+        avg = {n: np.nanmean(np.stack(s), axis=0) for n, s in stacks.items()}
+
+    if args.target_grid_res and args.target_grid_res != args.grid_res:
+        from optimalinterpolation_tpu_torch.data.regrid import regrid_field
+
+        if args.datapath is None:
+            raise SystemExit("--datapath required for regridding (grid .npy)")
+        sx, sy = _grid_axes(args.datapath, args.grid_res)
+        dx, dy = _grid_axes(args.target_datapath or args.datapath, args.target_grid_res)
+        om = "builtin" if args.ocean_mask == "builtin" else None
+        avg = {n: regrid_field(v.T, sx, sy, dx, dy, fill=not args.no_fill, ocean_mask=om).T
+               for n, v in avg.items()}
+
+    np.savez(args.out, **avg)
+    print(json.dumps({
+        "out": args.out, "days": len(files),
+        "finite_cells": int(np.isfinite(avg["ell_x"]).sum()),
+        "shape": list(avg["ell_x"].shape),
+    }))
+
+
+def cmd_validate(args):
+    """Skill of saved daily fields against independent point observations
+    (the reference's empty ``OIB/`` validation slot, C17).
+
+    ``--points`` is an ``.npz`` with arrays ``x``, ``y`` [m, projected],
+    ``date`` ('YYYYMMDD' strings) and ``value`` [m].
+    """
+    from optimalinterpolation_tpu_torch.io.pickles import load_pickle
+    from optimalinterpolation_tpu_torch.validation import PointObs, validate_fields
+
+    z = np.load(args.points, allow_pickle=False)
+    obs = PointObs(x=z["x"], y=z["y"], date=z["date"].astype(str), value=z["value"])
+    suffix = "_smth" if args.smoothed else ""
+    fields, uncertainties = {}, {}
+    for date, f in _scan_results(args.indir, args.grid_res):
+        d = load_pickle(f)
+        fields[date] = np.asarray(d[f"{date}_interp{suffix}"])
+        uncertainties[date] = np.asarray(d[f"{date}_interp_error{suffix}"])
+    x_axis, y_axis = _grid_axes(args.datapath, args.grid_res)
+    stats = validate_fields(obs, fields, x_axis, y_axis, uncertainties=uncertainties)
+    print(json.dumps({"days": len(fields), **stats.to_dict()}))
+
+
+def cmd_bin(args):
+    from optimalinterpolation_tpu_torch.data.binner import run_season_binning
+
+    fields = run_season_binning(args.datapath, args.outdir, args.sat, args.season,
+                                args.grid_res)
+    print(json.dumps({"days_binned": len(fields)}))
 
 
 def cmd_synth(args):
@@ -206,6 +347,56 @@ def main(argv=None):
                         "days stacked into one combined cell batch "
                         "(pipeline.multiday); 1 = one day at a time")
     p.set_defaults(fn=cmd_season)
+
+    p = sub.add_parser("bin", help="along-track binning (L0)")
+    p.add_argument("--datapath", required=True)
+    p.add_argument("--outdir", required=True)
+    p.add_argument("--sat", required=True)
+    p.add_argument("--season", default="2018-2019")
+    p.add_argument("--grid-res", type=int, default=25)
+    p.set_defaults(fn=cmd_bin)
+
+    p = sub.add_parser(
+        "hypers",
+        help="seasonal-average hyperparameter .npz (quicklook opt=False path)",
+    )
+    p.add_argument("--indir", required=True,
+                   help="directory of per-day CS2S3_*_{res}km.pkl results")
+    p.add_argument("--grid-res", type=int, default=50)
+    p.add_argument("--out", required=True, help="output .npz path")
+    p.add_argument("--raw", action="store_true",
+                   help="average the raw per-cell hypers instead of smoothed")
+    p.add_argument("--datapath", default=None,
+                   help="directory with x_/y_{res}km.npy grids (regrid only)")
+    p.add_argument("--target-grid-res", type=int, default=None,
+                   help="regrid the averages to this resolution "
+                        "(reference: 50 -> 25)")
+    p.add_argument("--target-datapath", default=None,
+                   help="grid .npy dir for the target res (default --datapath)")
+    p.add_argument("--no-fill", action="store_true",
+                   help="skip nearest-neighbour fill outside the footprint")
+    p.add_argument("--ocean-mask", choices=("footprint", "builtin"),
+                   default="footprint",
+                   help="'builtin' = the committed quicklook-derived "
+                        "ice-capable-ocean mask (replaces the reference's "
+                        "global_land_mask; real 2018-2019 domain only); "
+                        "'footprint' = the regridded field's own validity")
+    p.set_defaults(fn=cmd_hypers)
+
+    p = sub.add_parser(
+        "validate",
+        help="skill metrics of saved daily fields vs point observations (OIB)",
+    )
+    p.add_argument("--indir", required=True,
+                   help="directory of per-day CS2S3_*_{res}km.pkl results")
+    p.add_argument("--datapath", required=True,
+                   help="directory with x_/y_{res}km.npy grids")
+    p.add_argument("--grid-res", type=int, default=25)
+    p.add_argument("--points", required=True,
+                   help=".npz with x, y [m], date [YYYYMMDD], value [m]")
+    p.add_argument("--smoothed", action="store_true",
+                   help="validate the smoothed-hyper pass-2 fields")
+    p.set_defaults(fn=cmd_validate)
 
     p = sub.add_parser("synth", help="generate a synthetic season")
     p.add_argument("--outdir", required=True)

@@ -1,19 +1,22 @@
-"""Prior-mean model of the production flow (reference component C9).
+"""Prior-mean models (reference component C9).
 
-The production prior is a constant scalar: the 9-day nanmean of a CryoSat-2
-first-year-ice freeboard product, rounded to 3 decimals
-(``GPR_CS2S3.py:210-212``).
+Two priors exist in the reference:
+  * production: a constant scalar, the 9-day nanmean of a CryoSat-2
+    first-year-ice freeboard product, rounded to 3 decimals
+    (``GPR_CS2S3.py:210-212``);
+  * dev notebook: a spatially varying background, the 31-day all-satellite
+    mean with the pole hole (lat > 87N) filled by the mean of valid pole-hole
+    cells (``dev/sparseGP_example.ipynb`` cell-1, ``background``/``priorXS``).
 
-Copy of ``constant_fyi_prior`` from ``optimalinterpolation_tpu/data/prior.py``,
-kept until the JAX package's ``__init__`` is lazy (importing any module of it
-imports jax today).
+Copy of ``optimalinterpolation_tpu/data/prior.py``, kept because importing
+any module of that package imports JAX.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["constant_fyi_prior"]
+__all__ = ["constant_fyi_prior", "background_prior"]
 
 
 def constant_fyi_prior(fyi: np.ndarray, day: int, offset: int = 16, window: int = 9) -> float:
@@ -33,3 +36,25 @@ def constant_fyi_prior(fyi: np.ndarray, day: int, offset: int = 16, window: int 
             f"season-aligned product: 0)."
         )
     return float(np.round(np.nanmean(sl), 3))
+
+
+def background_prior(
+    obs: np.ndarray,  # (G, G, S, T) full-season stacked observations
+    lat: np.ndarray,  # (G, G) latitudes
+    n_days: int = 31,
+    pole_lat: float = 87.0,
+) -> np.ndarray:
+    """Spatially varying prior: first-``n_days`` all-satellite mean field with
+    pole-hole fill (dev notebook semantics). NaN where never observed."""
+    import warnings
+
+    with np.errstate(invalid="ignore"), warnings.catch_warnings():
+        # all-NaN cells are expected (never-observed ocean) and map to NaN
+        warnings.simplefilter("ignore", RuntimeWarning)
+        background = np.nanmean(obs[:, :, :, :n_days], axis=(2, 3))
+    hole = np.isnan(background) & (lat > pole_lat)
+    valid_pole = (~np.isnan(background)) & (lat > pole_lat)
+    if valid_pole.any():
+        background = background.copy()
+        background[hole] = np.mean(background[valid_pole])
+    return background

@@ -422,3 +422,37 @@ def test_wave_matches_serial_days_on_card(card, tmp_path):
         assert np.isfinite(interp).sum() > 20
         for key in s:
             np.testing.assert_array_equal(w[key], s[key], err_msg=key)
+
+
+def test_quicklook_day_profile_on_card_names_k1_and_k2(card, tmp_path):
+    """``daily --hypers H --profile LOGDIR`` on the card: a 100 km season at
+    a 600 km radius fills the 512-4096 buckets, so the quicklook day runs
+    K2 (N <= 1024) and K1 (the blocked predicts of N = 2048 and 4096). The
+    Chrome trace under LOGDIR holds one kernel event of each name for each
+    launch counted, and no K3."""
+    import json
+    import os
+
+    from optimalinterpolation_tpu_torch import cli
+    from optimalinterpolation_tpu_torch.data.synthetic import make_synthetic_season
+
+    d = str(tmp_path)
+    make_synthetic_season(d, grid_res_km=100, n_days=9, seed=7, noise_std=0.1,
+                          tracks_per_day=(10, 3, 8, 8))
+    npz = os.path.join(d, "hypers.npz")
+    np.savez(npz, **{k: np.full((80, 80), v) for k, v in
+                     dict(ell_x=2e5, ell_y=2e5, ell_t=2.0, sf2=0.03, sn2=0.005).items()})
+    logdir = os.path.join(d, "prof")
+    counted = (blocked_gp._factor_invert, fused_gp.gp_predict, fused_gp.gp_nll,
+               fused_gp.gp_nll_and_grad)
+    before = [fn.launches for fn in counted]
+    cli.main(["daily", "--datapath", d, "--grid-res", "100", "--radius-km", "600",
+              "--prior-mean", "0.15", "--hypers", npz, "--profile", logdir, "--outdir", d])
+    k1, k2, k3v, k3g = [fn.launches - b for fn, b in zip(counted, before)]
+    assert k1 > 0 and k2 > 0 and k3v == k3g == 0
+    (name,) = os.listdir(logdir)
+    with open(os.path.join(logdir, name)) as f:
+        kernels = [e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    assert sum("k1_factor_invert_kernel" in n for n in kernels) == k1
+    assert sum("k2_predict_kernel" in n for n in kernels) == k2
+    assert not any("k3_nll_kernel" in n for n in kernels)
