@@ -98,10 +98,36 @@ phase:
              their summed device ms; (e) ``validate`` on the truth at every
              active cell of the four dates: its rmse within 1e-6 m of the
              pooled rmse computed from the pickles directly.
+ 11. cell    the ``cell`` command (``cli.main(["cell", ...])``) on the fit
+             phase's season at two cells of window 0: the active cell with the
+             most points in the 1024 bucket and the first cell of the 4096
+             bucket. ``exact`` at both (L-BFGS through K3, and through the
+             rank-512 Nystrom objective on K1: each launched, the other not),
+             ``exact --optimizer adam`` at the first (60 K3 value + gradient
+             launches and one value), ``nystroem --landmarks 925`` (BFGS, 60
+             iterations) and ``svgp`` (50 inducing points, 10,000 steps of
+             100) at the first. Gates: each exact prediction within 1e-4 m of
+             the float64 ``exact_gp.predict`` on the CPU at the printed
+             hypers; the L-BFGS fits' float64 NLL of their objective within
+             NLL_MEAN of a float64 fit from there; Nystrom's mean and std
+             finite and within max(1e-3 m, 4 x the float32 CPU twin's
+             deviation) of float64 ``nystroem_predict`` at the same hypers and
+             landmarks; Nystrom's and SVGP's mean within 0.05 m of the exact
+             mean, std > 0, a finite ELBO. Seconds by method, ms a SVGP step.
+ 12. adam    the fit phase's full day through ``cli.main(["daily", ...,
+             "--optimizer", "adam"])`` (60 steps, nothing cut): 15 keys, every
+             active cell finite in every field, K1, K2 and both K3 variants
+             launched, no seed pass and no cascade; for 64 cells of each
+             bucket the pass-2 prediction within 1e-4 m of the float64 twin,
+             and the float64 value of the routed objective at the day's
+             hypers against a float64 Adam run of the same cells from x0
+             (median <= 0.05, mean <= 0.7 nats). Day wall, cells/s, stage
+             walls, launches, peak memory, rmse beside the L-BFGS day's.
 
 The fit phase's day must also give an earlier run's launches and rmse to
 the bit (``EARLIER_FIT``): the gather's arrays do not depend on how it
-searches. Then a ``{"kernels": [...]}`` line and, last, the device line
+searches. Then a ``{"phase": "seconds", ...}`` line with each phase's wall,
+a ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line; nothing is caught.
 """
@@ -584,10 +610,20 @@ class _Day:
         self.active_ij = np.nonzero(self.active)
         fyi = np.load(os.path.join(tmp, f"CS2_FYI_synthetic_{RES_KM}km.npy"))
         self.truth = fyi[:, :, day + cfg.t_mid] + 0.02  # the FYI file is truth - 0.02 m
-        train = flatten_window(ds.obs[:, :, :, day:day + cfg.window_days], ds.x, ds.y)
-        cells_xy = np.stack([ds.x[self.active_ij], ds.y[self.active_ij]], axis=1)
-        self.batches = gather_neighborhoods(train, cells_xy, t_star=float(cfg.t_mid),
+        self.train = flatten_window(ds.obs[:, :, :, day:day + cfg.window_days], ds.x, ds.y)
+        self.cells_xy = np.stack([ds.x[self.active_ij], ds.y[self.active_ij]], axis=1)
+        self.batches = gather_neighborhoods(self.train, self.cells_xy, t_star=float(cfg.t_mid),
                                             radius_m=cfg.radius_km * 1e3, dtype=np.float32)
+
+    def cell(self, xy):
+        """The neighbourhood the ``cell`` command gathers at ``xy``: its one
+        row's (x, z, mask, xstar), float32, in the gather's order."""
+        from optimalinterpolation_tpu_torch.data.neighbors import gather_neighborhoods
+
+        (b,) = gather_neighborhoods(self.train, np.asarray([xy]), t_star=float(self.cfg.t_mid),
+                                    radius_m=self.cfg.radius_km * 1e3, batch_multiple=1,
+                                    dtype=np.float32)
+        return b.x[0], b.z[0], b.mask[0], b.xstar[0]
 
     def rows(self, b):
         """The first 64 real rows of a bucket and their grid indices."""
@@ -823,7 +859,7 @@ def phase_fit(tmp: str, day: _Day) -> dict:
            optimum_vs_f64={str(n): v for n, v in optimum.items()})
     _gate_optimum(optimum, date)
     return {**launches, "day_wall_s": day_s, "cells": n_active,
-            "k3_value_launches": launches["K3 value"]}
+            "k3_value_launches": launches["K3 value"], "rmse_vs_truth_m": rmse}
 
 
 def _gate_optimum(optimum: dict, date: str) -> None:
@@ -1691,33 +1727,295 @@ def phase_chain(tmp: str, season: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# cell: the single-cell command, exact / Nystrom / SVGP
+# ---------------------------------------------------------------------------
+
+CELL_LANDMARKS = 925  # the reference demo's Nystrom rank (GP_example.ipynb cell-5)
+CROSS_METHOD_M = 0.05  # tests/test_cli.py's gate between the cell's methods
+SVGP_STEPS = 10_000  # the reference's SVGP settings: 50 inducing points, batch 100
+
+
+def _f64_config(backend: str, **kw):
+    """The float64 reference's optimizer settings for an objective as
+    ``optimizer._resolve_backend`` names it, for a fit on the CPU (every
+    wrapper there takes its kernel's plain twin): the plain autograd exact
+    objective for K3's, the Nystrom objective itself for Nystrom's."""
+    from optimalinterpolation_tpu_torch.models.optimizer import OptimizeConfig
+
+    return OptimizeConfig(backend="nystroem" if backend.startswith("nystroem") else "xla",
+                          nystroem_m=NYS_M, jitter=JITTER, **kw)
+
+
+def _f64_fns(backend: str, x, y, m):
+    """(value_fn, vg_fn) of the float64 reference of the objective
+    ``backend`` (as ``optimizer._resolve_backend`` names it) on the device
+    of ``x``: the plain autograd exact objective for K3's; for Nystrom's,
+    the Nystrom objective with both factorizations by
+    ``nystroem_gp.chol_inv_plain``, K1 taking float32 only."""
+    from optimalinterpolation_tpu_torch.ops import nystroem_gp
+    from optimalinterpolation_tpu_torch.ops.kernels import Kernel
+
+    if not backend.startswith("nystroem:"):
+        return _fns("xla", x, y, m)[:2]
+    mi = int(backend.split(":")[1])
+    kw = dict(kind=Kernel.MATERN32, jitter=JITTER, factor=nystroem_gp.chol_inv_plain)
+    return (lambda h: nystroem_gp.gp_nll_nystroem(h, x, y, m, mi, **kw),
+            lambda h: nystroem_gp.gp_nll_and_grad_nystroem(h, x, y, m, mi, **kw))
+
+
+def _cell_cli(tmp: str, xy, *extra) -> tuple:
+    """``cli.main(["cell", ...])`` at ``xy`` on the fit phase's season (its
+    defaults: 300 km / 9 days, float32, 60 iterations, on the card), every
+    launch count at 0 before and read after: (JSON line, launches)."""
+    _zero_counts()
+    line, _ = _cli(["cell", "--datapath", tmp, "--grid-res", str(RES_KM), "--day", str(DAY),
+                    "--prior-mean", str(PRIOR), "--x", repr(float(xy[0])),
+                    "--y", repr(float(xy[1])), *extra])
+    torch.cuda.synchronize()
+    return line, _counts()
+
+
+def _log_hypers(line) -> np.ndarray:
+    return np.log(np.array([line["hypers"][k] for k in HYPERS]))
+
+
+def _exact_cell_check(day, xy, line, backend=None) -> dict:
+    """The cell's prediction against the port's float64 ``exact_gp.predict``
+    on the CPU at the hypers it printed (|d mean|, |d std| <= 1e-4 m) and,
+    with ``backend`` (the objective the fit used), the float64 NLL of that
+    objective at those hypers minus what a float64 L-BFGS fit of it
+    reaches from there under the commands' stopping rule (<= NLL_MEAN)."""
+    from optimalinterpolation_tpu_torch.models import exact_gp
+    from optimalinterpolation_tpu_torch.models.optimizer import optimize_mll_batch
+
+    x, z, m, xs = (torch.from_numpy(a).double() for a in day.cell(xy))
+    lh = torch.from_numpy(_log_hypers(line))
+    ref = exact_gp.predict(lh, x, z, xs[None], m, PRIOR, jitter=JITTER)
+    out = {"n_points": line["n_points"], "capacity": int(x.shape[0]),
+           "d_mean_vs_f64": abs(line["mean"] - float(ref.mean[0])),
+           "d_std_vs_f64": abs(line["std"] - float(ref.std[0]))}
+    if not (out["d_mean_vs_f64"] <= 1e-4 and out["d_std_vs_f64"] <= 1e-4):
+        _fail(f"cell {line['method']}: the prediction is {out} off the float64 predict")
+    if backend is not None:  # on the CPU: one row
+        h, xr, yr, mr = lh[None], x[None], ((z - PRIOR) * m)[None], m[None]
+        with torch.no_grad():
+            at_fit = _f64_fns(backend, xr, yr, mr)[0](h)
+        polished = optimize_mll_batch(h, xr, yr, mr, _f64_config(backend, max_iters=60,
+                                                                  ftol_abs=1e-3))
+        out.update(objective=backend, nll64_at_fit=float(at_fit[0]),
+                   gap_vs_f64_fit=float(at_fit[0] - polished.nll[0]))
+        if not out["gap_vs_f64_fit"] <= NLL_MEAN:
+            _fail(f"cell {line['method']} N={out['capacity']}: the float64 NLL at the fitted "
+                  f"hypers is {out['gap_vs_f64_fit']} nats above a float64 fit from there "
+                  f"(> {NLL_MEAN})")
+    return out
+
+
+def _nystroem_cell_check(day, xy, line) -> dict:
+    """The Nystrom cell's prediction at its fitted hypers and the command's
+    landmarks against ``nystroem_predict`` in float64 on the CPU: within
+    max(1e-3 m, 4 x the float32 CPU twin's own deviation)."""
+    from optimalinterpolation_tpu_torch.models.nystroem import nystroem_predict
+
+    arrays = day.cell(xy)
+    valid = np.nonzero(arrays[2])[0]
+    lmk = torch.from_numpy(np.random.default_rng(0).choice(
+        valid, size=min(CELL_LANDMARKS, len(valid)), replace=False))
+    lh = _log_hypers(line)
+
+    def predict(dtype):
+        x, z, m, xs = (torch.from_numpy(a).to(dtype) for a in arrays)
+        return nystroem_predict(torch.from_numpy(lh).to(dtype), x, z, xs[None], lmk, m, PRIOR,
+                                jitter=JITTER)
+
+    ref, twin = predict(torch.float64), predict(torch.float32)
+    out = {"landmarks": line["landmarks"], "n_points": line["n_points"]}
+    for key in ("mean", "std"):
+        r = float(getattr(ref, key)[0])
+        out[f"d_{key}_vs_f64"] = abs(line[key] - r)
+        out[f"d_{key}_twin32_vs_f64"] = abs(float(getattr(twin, key)[0]) - r)
+        gate = max(1e-3, 4 * out[f"d_{key}_twin32_vs_f64"])
+        if not (np.isfinite(line[key]) and out[f"d_{key}_vs_f64"] <= gate):
+            _fail(f"cell nystroem: {key} {line[key]} is {out[f'd_{key}_vs_f64']} off the "
+                  f"float64 Nystrom predict (> {gate}); the command printed {line}")
+    return out
+
+
+def phase_cell(tmp: str, day) -> dict:
+    """Phase 11: the ``cell`` command at two cells of the fit phase's day:
+    the active cell with the most points in the 1024 bucket (K3) and the
+    first cell of the 4096 bucket (the rank-512 Nystrom objective, K1).
+    Returns each kernel's launches over the phase's calls."""
+    def pick(n, most):
+        b = next(bb for bb in day.batches if bb.capacity == n)
+        real = np.nonzero(b.cell_index >= 0)[0]
+        r = real[np.argmax(b.mask[real].sum(axis=1))] if most else real[0]
+        return day.cells_xy[b.cell_index[r]]
+
+    from optimalinterpolation_tpu_torch.models.optimizer import OptimizeConfig, _resolve_backend
+
+    xy_a, xy_b = pick(1024, True), pick(4096, False)
+    calls = {}
+    exact_a, calls["exact N=1024"] = _cell_cli(tmp, xy_a)
+    exact_b, calls["exact N=4096"] = _cell_cli(tmp, xy_b)
+    adam_a, calls["exact adam N=1024"] = _cell_cli(tmp, xy_a, "--optimizer", "adam")
+    nys_a, calls["nystroem N=1024"] = _cell_cli(tmp, xy_a, "--method", "nystroem",
+                                                "--landmarks", str(CELL_LANDMARKS))
+    svgp_a, calls["svgp N=1024"] = _cell_cli(tmp, xy_a, "--method", "svgp", "--svgp-iters",
+                                             str(SVGP_STEPS))
+    k_a, k_b = calls["exact N=1024"], calls["exact N=4096"]
+    if not (k_a["K3 value"] and k_a["K3 grad"]) or k_b["K1"] == 0 or k_b["K3 value"] + k_b[
+            "K3 grad"]:
+        _fail(f"the exact cells must fit through K3 (N = 1024) and K1 alone (N = 4096): "
+              f"{k_a}, {k_b}")
+    k_adam = calls["exact adam N=1024"]
+    if k_adam["K3 grad"] != 60 or k_adam["K3 value"] != 1:
+        _fail(f"the Adam cell must take 60 K3 value + gradient launches and one value: {k_adam}")
+    checks = {
+        "exact N=1024": _exact_cell_check(day, xy_a, exact_a,
+                                          _resolve_backend(OptimizeConfig(), 1024)),
+        "exact N=4096": _exact_cell_check(day, xy_b, exact_b,
+                                          _resolve_backend(OptimizeConfig(), 4096)),
+        "exact adam N=1024": _exact_cell_check(day, xy_a, adam_a),
+        "nystroem N=1024": _nystroem_cell_check(day, xy_a, nys_a),
+    }
+    for name, line in (("nystroem", nys_a), ("svgp", svgp_a)):
+        d = abs(line["mean"] - exact_a["mean"])
+        checks[f"{name} N=1024"] = {**checks.get(f"{name} N=1024", {}),
+                                    "d_mean_vs_exact": d}
+        if not (d <= CROSS_METHOD_M and line["std"] > 0):
+            _fail(f"cell {name}: mean {line['mean']} is {d} m from the exact mean "
+                  f"{exact_a['mean']} (> {CROSS_METHOD_M}), or std {line['std']} <= 0")
+    if not np.isfinite(svgp_a["elbo"]):
+        _fail(f"cell svgp: the ELBO is {svgp_a['elbo']}")
+    lines = {"exact N=1024": exact_a, "exact N=4096": exact_b, "exact adam N=1024": adam_a,
+             "nystroem N=1024": nys_a, "svgp N=1024": svgp_a}
+    _phase("cell", cells={"1024 bucket (most points)": [float(v) for v in xy_a],
+                          "4096 bucket (first)": [float(v) for v in xy_b]},
+           seconds={k: v["seconds"] for k, v in lines.items()},
+           svgp_ms_a_step=svgp_a["seconds"] / SVGP_STEPS * 1e3, launches=calls,
+           lines=lines, checks=checks)
+    return {k: sum(c[k] for c in calls.values()) for k in k_a}
+
+
+# ---------------------------------------------------------------------------
+# adam: the full day fitted by Adam
+# ---------------------------------------------------------------------------
+
+def _adam_optimum(day, res, date) -> dict:
+    """For 64 cells of each bucket, on the problem the Adam day fitted (the
+    full row, valid points shuffled where the bucket is capped for L-BFGS,
+    as the pipeline shuffles it), with the objective ``"auto"`` routes at
+    that size: its float64 value at the day's hypers minus its float64
+    value after a float64 Adam run of the same 60 steps from x0, both on
+    the card (``_f64_fns``)."""
+    from optimalinterpolation_tpu_torch.models import exact_gp, optimizer
+    from optimalinterpolation_tpu_torch.models.optimizer import OptimizeConfig, _resolve_backend
+    from optimalinterpolation_tpu_torch.pipeline.daily import _permute_valid_points
+
+    out = {}
+    for b in day.batches:
+        n = b.capacity
+        if min(n, day.cfg.opt_n_max) < n:
+            _permute_valid_points(b)
+        rows, gi, gj = day.rows(b)
+        backend = _resolve_backend(OptimizeConfig(), n)
+        lh = np.log(np.stack([res[f"{date}_{k}"][gi, gj] for k in HYPERS], 1))
+        h, x, z, m = (torch.from_numpy(np.ascontiguousarray(a)).double().cuda()
+                      for a in (lh, b.x[rows], b.z[rows], b.mask[rows]))
+        y = z - PRIOR
+        x0 = exact_gp.HYPER_INIT_LOG(RES_KM * 1e3, dtype=torch.float64,
+                                     device="cuda").expand(len(rows), 5).contiguous()
+        value_fn, vg_fn = _f64_fns(backend, x, y, m)
+        with torch.no_grad():
+            at_fit = value_fn(h)
+            adam64 = optimizer._adam(value_fn, vg_fn, x0,
+                                     OptimizeConfig(method="adam", max_iters=60))
+        gap = at_fit - adam64.nll
+        if not (torch.isfinite(at_fit).all() and torch.isfinite(adam64.nll).all()):
+            _fail(f"N={n}: a float64 NLL at the Adam hypers or the float64 Adam run is not finite")
+        out[n] = {"cells": len(rows), "objective": backend,
+                  "gap": {"max": gap.max().item(), "median": gap.median().item(),
+                          "mean": gap.mean().item(), "p95": gap.quantile(0.95).item()}}
+    return out
+
+
+def phase_adam(tmp: str, fit: dict) -> dict:
+    """Phase 12: the fit phase's full day through ``cli.main(["daily", ...,
+    "--optimizer", "adam"])`` (no seed pass, no cascade; every row fitted
+    by 60 Adam steps from x0 at its bucket's full capacity, then smoothing
+    and pass 2). Returns its launches."""
+    torch.cuda.reset_peak_memory_stats()
+    res, date, launches, _, day_s, handler = _run_daily(tmp, ["--optimizer", "adam"])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    stages = _stage_entries(handler.stages)
+    day = _Day(tmp)  # buckets in the gather's order, shuffled below as the fit shuffled them
+    n_active = int(day.active.sum())
+    day.check_finite(res, date, [k[len(date) + 1:] for k in res])
+    if min(launches.values()) == 0:
+        _fail(f"the Adam day did not launch every kernel: {launches}")
+    if any(e["stage"].startswith("seed:") or e["stage"] == "cascade" for e in stages):
+        _fail(f"the Adam day ran a seed pass or a cascade: {[e['stage'] for e in stages]}")
+    check = day.check_predict(res, date, "_smth")
+    optimum = _adam_optimum(day, res, date)
+    rmse = day.rmse(res[f"{date}_interp_smth"])
+    _phase("adam", date=date, active_cells=n_active, cut="none: the whole day, 60 Adam steps",
+           day_wall_s=day_s, cells_per_s_day=n_active / day_s,
+           fit_wall_s=sum(e["wall_s"] for e in stages if e["stage"] == "opt"),
+           predict_wall_s=sum(e["wall_s"] for e in stages if e["stage"] in ("predict", "pass2")),
+           launches=launches, peak_mem_gb=peak, stages=stages,
+           rmse_vs_truth_m=rmse, rmse_pass1_vs_truth_m=day.rmse(res[f"{date}_interp"]),
+           rmse_lbfgs_day_this_run_m=fit["rmse_vs_truth_m"],
+           pass2_vs_f64={str(n): {"cells": c, "d_mean": dm, "d_std": ds_}
+                         for n, (c, dm, ds_) in check.items()},
+           optimum_vs_f64_adam={str(n): v for n, v in optimum.items()})
+    for n, v in optimum.items():
+        if not (v["gap"]["median"] <= NLL_TYPICAL and v["gap"]["mean"] <= NLL_MEAN):
+            _fail(f"{date} N={n}: the float64 NLL at the Adam hypers is {v['gap']['median']} "
+                  f"(median) / {v['gap']['mean']} (mean) nats above a float64 Adam run's "
+                  f"(> {NLL_TYPICAL} / {NLL_MEAN})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False")
     from optimalinterpolation_tpu_torch.data.synthetic import make_synthetic_season
 
-    phase_device()
-    phase_build()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    timed("device", phase_device)
+    timed("build", phase_build)
     with tempfile.TemporaryDirectory() as tmp:
         # bench.py's synthetic season: seed 7, tracks (10, 3, 8, 8), noise 0.1
         make_synthetic_season(tmp, grid_res_km=RES_KM, n_days=N_DAYS, seed=7,
                               tracks_per_day=(10, 3, 8, 8), noise_std=0.1)
         day = _Day(tmp)
-        k1 = phase_k1(day)
-        k2 = phase_k2()
-        k3 = phase_k3()
-        quick = phase_slice(tmp, day)
-        fit = phase_fit(tmp, day)
-        objectives = phase_objectives(day)
+        k1 = timed("k1", phase_k1, day)
+        k2 = timed("k2", phase_k2)
+        k3 = timed("k3", phase_k3)
+        quick = timed("slice", phase_slice, tmp, day)
+        fit = timed("fit", phase_fit, tmp, day)
+        objectives = timed("objectives", phase_objectives, day)
+        cell = timed("cell", phase_cell, tmp, day)
+        adam = timed("adam", phase_adam, tmp, fit)
     with tempfile.TemporaryDirectory() as tmp:
-        season = phase_season(fit, tmp)
-        chain = phase_chain(tmp, season)
+        season = timed("season", phase_season, fit, tmp)
+        chain = timed("chain", phase_chain, tmp, season)
+    _phase("seconds", **seconds)
 
     def paths(name):
         return {"launches": fit[name], "launches_by_path": {
             "quicklook": quick[name], "fit": fit[name],
             "season": {wave: season[wave][name] for wave in ("cold", "chained")},
-            "chain": chain[name]}}
+            "chain": chain[name], "cell": cell[name], "adam": adam[name]}}
 
     k1_paths = paths("K1")
     k1_paths["launches_by_path"].update(objectives)
@@ -1726,13 +2024,13 @@ def main() -> int:
         {"name": "K1 factor_invert_128", "route": "cuda",
          "source": "optimalinterpolation_tpu_torch/csrc/k1_factor_invert.cu",
          "replaces": "optimalinterpolation_tpu/ops/blocked_gp.py:80", **k1_paths,
-         "launched_by": ["blocked predict (quicklook, fit, season waves, chain)",
+         "launched_by": ["blocked predict (quicklook, fit, season waves, chain, Adam day)",
                          "blocked objective",
-                         "Nystrom chol_inv"], **k1},
+                         "Nystrom chol_inv (cell at N = 4096, Adam day at 2048 / 4096)"], **k1},
         {"name": "K2 fused predict", "route": "cuda",
          "source": "optimalinterpolation_tpu_torch/csrc/k2_predict.cu",
          "replaces": "optimalinterpolation_tpu/ops/pallas_gp.py:795", **paths("K2"),
-         "launched_by": ["fused predict (quicklook, fit, chain)", waves], **k2},
+         "launched_by": ["fused predict (quicklook, fit, chain, Adam day)", waves], **k2},
         {"name": "K3 fused NLL + gradient", "route": "cuda",
          "source": "optimalinterpolation_tpu_torch/csrc/k3_nll_grad.cu",
          "replaces": "optimalinterpolation_tpu/ops/pallas_gp.py:501",
@@ -1743,8 +2041,12 @@ def main() -> int:
                                                 "grad": season[wave]["K3 grad"]}
                                          for wave in ("cold", "chained")},
                               "chain": {"value": chain["K3 value"],
-                                        "grad": chain["K3 grad"]}},
-         "launched_by": ["fit (seed pass, cascade, fine stage)", waves], **k3},
+                                        "grad": chain["K3 grad"]},
+                              "cell": {"value": cell["K3 value"], "grad": cell["K3 grad"]},
+                              "adam": {"value": adam["K3 value"], "grad": adam["K3 grad"]}},
+         "launched_by": ["fit (seed pass, cascade, fine stage)", waves,
+                         "cell (exact, L-BFGS and Adam, N <= 1024)",
+                         "Adam day (every step at N <= 1024)"], **k3},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,9 @@ predict (``ops/fused_gp.py``). Module names mirror the JAX package.
 Layer map:
   ops/       covariance kernels, masked linalg, blocked and fused predict,
              the CUDA build (ops/_cuda.py)
-  models/    exact GP predict, batched predict routing
+  models/    exact GP, batched predict routing, the batched optimizer
+             (L-BFGS, Adam), the single-cell Nystrom and SVGP models and
+             BFGS of the ``cell`` command
   data/      window flattening, neighborhood gather, reader, priors, binner,
              regrid and the ocean mask, synthetic seasons
   native/    the C++ host data plane (radius search, .proc parser), g++
@@ -19,7 +21,7 @@ Layer map:
   pipeline/  the day, waves of days, the season
   utils/     stage timers, the profiler trace
   csrc/      CUDA C++ sources of K1, K2 and K3 (sm_90a)
-  validation.py, cli.py
+  validation.py, viz.py (figures, matplotlib), cli.py
 """
 
 __version__ = "0.1.0"

@@ -17,12 +17,18 @@
                                    skill of per-day results against point
                                    observations
   python -m optimalinterpolation_tpu_torch synth   synthetic season generator
+  python -m optimalinterpolation_tpu_torch cell    single-cell GP (exact |
+                                   nystroem | svgp), the GP_example.ipynb
+                                   workflow
 
 Argument names, defaults and JSON output lines follow
 ``optimalinterpolation_tpu/cli.py`` for the commands and arguments kept.
 ``--hypers`` takes the ``.npz`` that either package's ``hypers`` command
 writes. ``--device`` picks the card or, for tests and small runs, ``cpu``;
 ``--profile LOGDIR`` writes a ``torch.profiler`` Chrome trace of the run.
+``--optimizer adam`` fits with Adam instead of L-BFGS (``daily``, ``season``
+with waves of one day, ``cell --method exact``). ``cell --figure`` needs
+matplotlib.
 """
 
 from __future__ import annotations
@@ -60,7 +66,7 @@ def _add_daily_args(p):
                    help="cap hyperparameter estimation at a uniform N-point "
                         "subsample per cell (prediction stays full-N); "
                         "default 1024; 0 = full-N")
-    p.add_argument("--optimizer", default="lbfgs", choices=["lbfgs"])
+    p.add_argument("--optimizer", default="lbfgs", choices=["lbfgs", "adam"])
     p.add_argument("--dtype", default="float32")
     p.add_argument("--jitter", type=float, default=1e-6)
     p.add_argument("--prior-mean", type=float, default=None,
@@ -177,6 +183,124 @@ def cmd_daily(args):
         outputs["quicklook"] = write_result_quicklook(res, lon, lat, ds.grid_res_km,
                                                       args.outdir)
     print(json.dumps(outputs))
+
+
+def cmd_cell(args):
+    """Single-cell GP train/predict, the reference's notebook workflow
+    (``cli.py:200-358``): ``GP_example.ipynb`` cell-3 (exact GP) and cell-5
+    (Nystroem), ``dev/sparseGP_example.ipynb`` cell-5 (SVGP). Gathers the
+    radius/window neighbourhood of one location, fits, predicts, and prints
+    mean / std / lZ or NLL or ELBO / hyperparameters (``--figure``: the
+    prior-vs-posterior figure and the training footprint map)."""
+    import time
+
+    import torch
+
+    from optimalinterpolation_tpu_torch.data.neighbors import gather_neighborhoods
+    from optimalinterpolation_tpu_torch.data.window import flatten_window
+    from optimalinterpolation_tpu_torch.models import exact_gp
+    from optimalinterpolation_tpu_torch.ops.kernels import Kernel
+
+    ds, _ = _setup(args)
+    prior = _prior(args, ds)(args.day)
+    if np.ndim(prior) == 2:  # a field: sampled at the nearest grid cell
+        k = np.argmin((ds.x - args.x) ** 2 + (ds.y - args.y) ** 2)
+        v = np.asarray(prior).ravel()[k]
+        prior = float(v) if np.isfinite(v) else float(np.nanmean(prior))
+    prior = float(prior)
+    t_mid = args.window_days // 2
+    date = ds.dates[args.day + t_mid]
+    train = flatten_window(ds.obs[:, :, :, args.day : args.day + args.window_days], ds.x, ds.y)
+    dtype = np.float64 if args.dtype == "float64" else np.float32
+    batches = gather_neighborhoods(train, np.array([[args.x, args.y]]), t_star=float(t_mid),
+                                   radius_m=args.radius_km * 1e3, batch_multiple=1, dtype=dtype)
+    if not batches or int(batches[0].mask[0].sum()) == 0:
+        raise SystemExit("no observations within the radius/window")
+    b = batches[0]
+    dev = torch.device(args.device)
+    x, z, mask = (torch.from_numpy(a[0]).to(dev) for a in (b.x, b.z, b.mask))
+    xstar = torch.from_numpy(b.xstar[0]).to(dev)[None]
+    kind = Kernel(args.kernel)
+    mean = torch.tensor(prior, dtype=x.dtype, device=dev)
+    h0 = exact_gp.HYPER_INIT_LOG(ds.grid_res_km * 1e3, dtype=x.dtype, device=dev)
+    out = {"date": date, "method": args.method, "n_points": int(b.mask[0].sum()),
+           "prior_mean": prior}
+    footprint_inducing = None
+
+    with _profile(args):
+        t0 = time.time()
+        if args.method == "exact":
+            from optimalinterpolation_tpu_torch.models.optimizer import (
+                OptimizeConfig,
+                optimize_mll,
+            )
+
+            cfg = OptimizeConfig(method=args.optimizer, max_iters=args.max_iters, kind=kind,
+                                 jitter=args.jitter, restarts=args.restarts, ftol_abs=args.ftol)
+            opt = optimize_mll(h0, x, (z - mean) * mask, mask, config=cfg)
+            pred = exact_gp.predict(opt.log_hypers, x, z, xstar, mask, mean, kind=kind,
+                                    jitter=args.jitter)
+            log_h = opt.log_hypers
+            out.update(mean=float(pred.mean[0]), std=float(pred.std[0]), lZ=float(pred.lZ),
+                       prior_std=float(pred.prior_std[0]), nll=float(opt.nll),
+                       iters=int(opt.iters))
+        elif args.method == "nystroem":
+            from optimalinterpolation_tpu_torch.models import bfgs
+            from optimalinterpolation_tpu_torch.models.nystroem import (
+                nystroem_nll,
+                nystroem_predict,
+            )
+
+            valid = np.nonzero(b.mask[0])[0]
+            m_lmk = min(args.landmarks, len(valid))
+            rng = np.random.default_rng(args.seed)
+            lmk = torch.from_numpy(rng.choice(valid, size=m_lmk, replace=False)).to(dev)
+            zc = (z - mean) * mask
+
+            def objective(h):
+                return nystroem_nll(h, x, zc, lmk, mask, kind=kind, jitter=args.jitter)
+
+            res = bfgs.minimize_bfgs(objective, h0, maxiter=args.max_iters)
+            pred = nystroem_predict(res.x, x, z, xstar, lmk, mask, mean, kind=kind,
+                                    jitter=args.jitter)
+            log_h = res.x
+            out.update(mean=float(pred.mean[0]), std=float(pred.std[0]), nll=float(res.fun),
+                       landmarks=m_lmk)
+        else:  # svgp (argparse's choices guard the method)
+            from optimalinterpolation_tpu_torch.models.svgp import (
+                SVGPConfig,
+                svgp_fit,
+                svgp_init,
+                svgp_predict,
+            )
+
+            cfg = SVGPConfig(num_inducing=args.num_inducing, iterations=args.svgp_iters,
+                             batch_size=args.svgp_batch, kind=kind)
+            params0 = svgp_init(x, mask, cfg.num_inducing, h0, prior)
+            fit = svgp_fit(params0, x, z, mask, torch.Generator(dev).manual_seed(args.seed),
+                           config=cfg)
+            pred = svgp_predict(fit.params, xstar, kind=kind)
+            log_h = fit.params.log_hypers
+            footprint_inducing = fit.params.z[:, :2].cpu().numpy()
+            out.update(mean=float(pred.mean[0]), std=float(pred.std[0]),
+                       elbo=float(fit.elbo_log[-1]), learned_mean=float(fit.params.mean))
+        out["seconds"] = round(time.time() - t0, 3)
+    out["hypers"] = {k: float(np.exp(v)) for k, v in
+                     zip(("ell_x", "ell_y", "ell_t", "sf2", "sn2"), log_h.cpu().numpy())}
+
+    if args.figure:
+        from optimalinterpolation_tpu_torch import viz
+
+        prior_std = out.get("prior_std", float(np.sqrt(out["hypers"]["sf2"])))
+        pdf_path = f"{args.figure}_pdf.png"
+        viz.plot_prior_posterior(prior, prior_std, out["mean"], out["std"], path=pdf_path)
+        foot_path = f"{args.figure}_footprint.png"
+        valid = b.mask[0] > 0
+        viz.plot_training_footprint(b.x[0][valid, :2], b.z[0][valid], (args.x, args.y),
+                                    radius_m=args.radius_km * 1e3,
+                                    inducing_xy=footprint_inducing, path=foot_path)
+        out["figures"] = [pdf_path, foot_path]
+    print(json.dumps(out))
 
 
 def _days_spec(spec: str):
@@ -347,6 +471,25 @@ def main(argv=None):
                         "days stacked into one combined cell batch "
                         "(pipeline.multiday); 1 = one day at a time")
     p.set_defaults(fn=cmd_season)
+
+    p = sub.add_parser("cell", help="single-cell GP at one location (exact | nystroem | svgp)")
+    _add_daily_args(p)
+    p.add_argument("--day", type=int, default=0, help="window start index")
+    p.add_argument("--x", type=float, required=True,
+                   help="projected x of the cell [m] (GP_example: 0.94e6)")
+    p.add_argument("--y", type=float, required=True,
+                   help="projected y of the cell [m] (GP_example: 3.5e5)")
+    p.add_argument("--method", default="exact", choices=["exact", "nystroem", "svgp"])
+    p.add_argument("--landmarks", type=int, default=925,
+                   help="Nystroem rank M (reference demo: 925)")
+    p.add_argument("--num-inducing", type=int, default=50)
+    p.add_argument("--svgp-iters", type=int, default=10_000)
+    p.add_argument("--svgp-batch", type=int, default=100)
+    p.add_argument("--seed", type=int, default=0, help="landmark / minibatch sampling seed")
+    p.add_argument("--figure", default=None,
+                   help="path prefix: writes <prefix>_pdf.png (paper Fig. 2) and "
+                        "<prefix>_footprint.png (needs matplotlib)")
+    p.set_defaults(fn=cmd_cell)
 
     p = sub.add_parser("bin", help="along-track binning (L0)")
     p.add_argument("--datapath", required=True)

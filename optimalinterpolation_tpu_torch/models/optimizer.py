@@ -3,7 +3,9 @@
 PyTorch counterpart of ``optimalinterpolation_tpu/models/optimizer.py``: the
 reference's per-cell ``scipy.optimize.minimize(SMLII, x0, method='CG',
 jac=True)`` (``GPR_CS2S3.py:166``) as one lockstep L-BFGS over the five
-log-hyperparameters of thousands of cells at once. Every update is a row-wise
+log-hyperparameters of thousands of cells at once, or, with
+``method="adam"``, a fixed number of Adam steps on a cosine-decayed learning
+rate (``optimizer.py:546-573``). Every update is a row-wise
 ``where``, so a cell's trajectory does not depend on which other cells share
 its batch, its chunk or its segment; finished cells are frozen while the
 slowest finish, and :func:`optimize_mll_chunked` drops them between segments.
@@ -26,6 +28,7 @@ was.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from typing import Callable, NamedTuple, Optional
 
@@ -83,6 +86,9 @@ class OptimizeConfig:
     N >= nystroem_min_n (and N >= 2 nystroem_m) are fitted on the rank-
     ``nystroem_m`` Nystrom objective; 0 disables. ``OI_NYSTROEM_MIN_N``
     overrides the threshold, as in the JAX package.
+    ``method``: ``"lbfgs"`` or ``"adam"`` (``max_iters`` steps of Adam at a
+    peak learning rate ``adam_lr``, cosine-decayed to 0 over ``max_iters``;
+    no stopping rule, no line search).
 
     The defaults differ from the JAX package's (``nystroem_min_n`` 1024,
     chosen on a v5e). On an NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py``
@@ -107,10 +113,11 @@ class OptimizeConfig:
     nystroem_min_n: int = _NYSTROEM_MIN_N
     nystroem_m: int = 512
     restarts: int = 1
+    adam_lr: float = 0.2
 
     def __post_init__(self):
-        if self.method != "lbfgs":
-            raise ValueError(f"unknown method {self.method!r} (only 'lbfgs' is ported)")
+        if self.method not in ("lbfgs", "adam"):
+            raise ValueError(f"unknown method {self.method!r}")
         if self.backend not in ("auto", "xla", "fused", "pallas", "blocked", "nystroem"):
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.nystroem_m % blocked_gp.BLK != 0:
@@ -506,15 +513,51 @@ def _expand_restarts(log_hypers0: torch.Tensor, restarts: int) -> torch.Tensor:
     return (log_hypers0[None, :, :] + offs[:, None, :]).reshape(-1, log_hypers0.shape[1])
 
 
+def _best_of_restarts(res: OptimizeResult, restarts: int) -> OptimizeResult:
+    """Rows ``r * B + i`` are cell i from restart r: each cell's best NLL."""
+    if restarts == 1:
+        return res
+    b = res.nll.shape[0] // restarts
+    nll = torch.where(torch.isfinite(res.nll), res.nll, float("inf")).reshape(restarts, b)
+    sel = nll.argmin(dim=0) * b + torch.arange(b, device=nll.device)
+    return OptimizeResult(*(f[sel] for f in res))
+
+
 def _result(st: LbfgsState, knobs: _Knobs, restarts: int) -> OptimizeResult:
     """The result of a finished state; with restarts, each cell's best NLL."""
-    fields = (st.params, st.value, st.it_cell, st.converged_mask(knobs))
-    if restarts > 1:
-        b = st.value.shape[0] // restarts
-        nll = torch.where(torch.isfinite(st.value), st.value, float("inf")).reshape(restarts, b)
-        sel = nll.argmin(dim=0) * b + torch.arange(b, device=nll.device)
-        fields = tuple(f[sel] for f in fields)
-    return OptimizeResult(*fields)
+    return _best_of_restarts(
+        OptimizeResult(st.params, st.value, st.it_cell, st.converged_mask(knobs)), restarts)
+
+
+# optax.adam's defaults
+_ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+def _adam(value_fn, vg_fn, h0: torch.Tensor, config: OptimizeConfig) -> OptimizeResult:
+    """``config.max_iters`` Adam steps of every row (``optimizer.py:546-573``,
+    ``optax.adam(optax.cosine_decay_schedule(adam_lr, max_iters))``): step t
+    (from 0) moves by ``lr_t m_hat / (sqrt(v_hat) + eps)`` with
+    ``lr_t = adam_lr (1 + cos(pi min(t, T) / T)) / 2``; non-finite gradient
+    entries are zeroed first. No row stops early and nothing comes to the
+    host: one value + gradient evaluation a step, one value at the end.
+    ``converged``: the last step's gradient 2-norm <= ``grad_tol``."""
+    t_max = config.max_iters
+    params = h0
+    m = torch.zeros_like(h0)
+    v = torch.zeros_like(h0)
+    gnorm = torch.full((h0.shape[0],), math.inf, dtype=h0.dtype, device=h0.device)
+    for t in range(t_max):
+        _, g = vg_fn(params)
+        g = torch.where(torch.isfinite(g), g, 0.0)
+        m = (1.0 - _ADAM_B1) * g + _ADAM_B1 * m
+        v = (1.0 - _ADAM_B2) * (g * g) + _ADAM_B2 * v
+        m_hat = m / (1.0 - _ADAM_B1 ** (t + 1))
+        v_hat = v / (1.0 - _ADAM_B2 ** (t + 1))
+        lr = config.adam_lr * 0.5 * (1.0 + math.cos(math.pi * min(t, t_max) / t_max))
+        params = params + (m_hat / (v_hat.sqrt() + _ADAM_EPS)) * -lr
+        gnorm = torch.linalg.vector_norm(g, dim=1)
+    iters = torch.full((h0.shape[0],), t_max, dtype=torch.int32, device=h0.device)
+    return OptimizeResult(params, value_fn(params), iters, gnorm <= config.grad_tol)
 
 
 @torch.no_grad()
@@ -526,16 +569,19 @@ def optimize_mll_batch(
     config: OptimizeConfig = OptimizeConfig(),
 ) -> OptimizeResult:
     """Batched MLL optimization of a bucket of cells in one lockstep run, on
-    the device of its inputs (``optimizer.py:588-645``). With
-    ``config.restarts > 1`` every cell is optimized from several
-    deterministic initializations stacked into the batch, and the best NLL
-    wins."""
+    the device of its inputs (``optimizer.py:588-645``): L-BFGS or, with
+    ``config.method == "adam"``, :func:`_adam`, on the objective
+    :func:`_resolve_backend` routes. With ``config.restarts > 1`` every cell
+    is optimized from several deterministic initializations stacked into the
+    batch, and the best NLL wins."""
     backend = _resolve_backend(config, x.shape[1])
     r = config.restarts
     h0 = _expand_restarts(log_hypers0, r)
     if r > 1:
         x, y, mask = (a.repeat((r,) + (1,) * (a.dim() - 1)) for a in (x, y, mask))
     value_fn, vg_fn, pair = _batched_fns(config.kind, config.jitter, backend, x, y, mask)
+    if config.method == "adam":
+        return _best_of_restarts(_adam(value_fn, vg_fn, h0, config), r)
     knobs = _Knobs.of(config)
     st = _lbfgs_segment(value_fn, vg_fn, _lbfgs_init(vg_fn, h0), knobs, config.max_iters, pair)
     return _result(st, knobs, r)
@@ -585,7 +631,10 @@ def optimize_mll_chunked(
     The inputs, the whole bucket's L-BFGS state and the result stay on the
     device of ``x``; a chunk is a gather (``index_select``) of its rows. Per
     sweep the host learns one number more, how many rows are still live.
+    L-BFGS only, as in the JAX package.
     """
+    if config.method != "lbfgs":
+        raise ValueError("optimize_mll_chunked supports method='lbfgs' only")
     backend = _resolve_backend(config, x.shape[1])
     r = config.restarts
     b = log_hypers0.shape[0]

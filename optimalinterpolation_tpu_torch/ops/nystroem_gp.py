@@ -34,7 +34,7 @@ from optimalinterpolation_tpu_torch.ops import blocked_gp
 from optimalinterpolation_tpu_torch.ops import kernels as K
 from optimalinterpolation_tpu_torch.ops.kernels import Kernel
 
-__all__ = ["chol_inv", "gp_nll_nystroem", "gp_nll_and_grad_nystroem"]
+__all__ = ["chol_inv", "chol_inv_plain", "gp_nll_nystroem", "gp_nll_and_grad_nystroem"]
 
 _LOG2PI = 1.8378770664093453
 # Jitter on the landmark Gram matrix, relative to sf2: Kmm has no noise
@@ -79,6 +79,15 @@ def chol_inv(a: torch.Tensor):
     return _CholInv.apply(a)
 
 
+def chol_inv_plain(a: torch.Tensor):
+    """:func:`chol_inv`'s plain twin on any device and dtype: one library
+    Cholesky of the whole matrix (``blocked_gp._factor_invert_plain``),
+    differentiated by autograd. The objectives take it only where a caller
+    passes it as ``factor``: float64 references on the card, where K1
+    (float32 only) cannot run."""
+    return blocked_gp._factor_invert_plain(a)
+
+
 def gp_nll_nystroem(
     log_hypers: torch.Tensor,  # (B, 5)
     x: torch.Tensor,  # (B, N, 3)
@@ -87,11 +96,13 @@ def gp_nll_nystroem(
     m_inducing: int,
     kind: Kernel = Kernel.MATERN32,
     jitter: float = 0.0,
+    factor=chol_inv,
 ) -> torch.Tensor:
     """Batched Nystrom-approximate masked NLL, (B,); ``+inf`` where either
     factor fails. The landmarks are each row's first ``m_inducing`` slots;
     the noise diagonal is ``sn2 + jitter * sf2`` as on the exact paths, so
-    the objective tends to the exact NLL as M -> n_valid."""
+    the objective tends to the exact NLL as M -> n_valid. ``factor`` makes
+    both (M, M) factorizations: :func:`chol_inv` or :func:`chol_inv_plain`."""
     mi = m_inducing
     if mi % blocked_gp.BLK != 0:
         raise ValueError(f"m_inducing must be a multiple of {blocked_gp.BLK}, got {mi}")
@@ -107,14 +118,14 @@ def gp_nll_nystroem(
     xm, mm = x[:, :mi], m[:, :mi]
     kmm = K.kernel_matrix(xm, ell, sf2, kind=kind, mask=mm)
     amm = kmm + torch.diag_embed((_MM_JITTER * sf2)[:, None] * mm + (1.0 - mm))
-    _, wm, _, ok1 = chol_inv(amm)
+    _, wm, _, ok1 = factor(amm)
 
     # rows masked by m, padded landmark columns zeroed
     knm = K.cross_kernel(x, xm, ell, sf2, kind=kind, mask=m) * mm[:, None, :]
     phi = knm @ wm.mT  # Knm Lm^-T, (B, N, M)
     eye = torch.eye(mi, dtype=x.dtype, device=x.device)
     core = phi.mT @ phi + d_noise[:, None, None] * eye
-    _, wc, logdet_c, ok2 = chol_inv(core)  # logdet_c = log det(core) / 2
+    _, wc, logdet_c, ok2 = factor(core)  # logdet_c = log det(core) / 2
 
     zc = (wc @ (phi.mT @ ym[:, :, None]))[:, :, 0]  # Lc^-1 Phi^T ym
     quad = ((ym * ym).sum(dim=1) - (zc * zc).sum(dim=1)) / d_noise
@@ -128,14 +139,15 @@ def gp_nll_nystroem(
 
 def gp_nll_and_grad_nystroem(
     log_hypers, x, y, mask, m_inducing: int,
-    kind: Kernel = Kernel.MATERN32, jitter: float = 0.0,
+    kind: Kernel = Kernel.MATERN32, jitter: float = 0.0, factor=chol_inv,
 ):
     """Batched Nystrom NLL (B,) and its (B, 5) gradient by autograd. Rows
     are independent, so the gradient of the sum of the finite rows is each
     row's own; a row whose value is not finite gets a NaN gradient row."""
     with torch.enable_grad():
         h = log_hypers.detach().requires_grad_()
-        nll = gp_nll_nystroem(h, x, y, mask, m_inducing, kind=kind, jitter=jitter)
+        nll = gp_nll_nystroem(h, x, y, mask, m_inducing, kind=kind, jitter=jitter,
+                              factor=factor)
         finite = torch.isfinite(nll)
         (grad,) = torch.autograd.grad(torch.where(finite, nll, 0.0).sum(), h)
     return nll.detach(), torch.where(finite[:, None], grad, math.nan)

@@ -17,9 +17,12 @@ The fit of a bucket is one lockstep L-BFGS over all its cells
 or Nystrom objective where ``OptimizeConfig`` routes it), warm-started from
 a sublattice of seed cells and through a cascade of growing subsamples; the
 bucket's arrays and the L-BFGS state stay on the device from the first stage
-to the last. Each predict runs in chunks of one fixed tile size through
-``models.exact_gp_batch.predict_batch`` (K2 for N <= 1024, the blocked path
-with K1 above), and each chunk's results come back to the host in one copy.
+to the last. With ``OptimizeConfig(method="adam")`` (``daily.py:903-927``)
+there is no seed pass and no cascade: :func:`_fit_adam` fits every row from
+x0 at the bucket's full capacity, chunk by chunk. Each predict runs in
+chunks of one fixed tile size through ``models.exact_gp_batch.predict_batch``
+(K2 for N <= 1024, the blocked path with K1 above), and each chunk's results
+come back to the host in one copy.
 
 Output keys replicate the reference result dict (``:290-307,333-334``).
 
@@ -50,6 +53,7 @@ from optimalinterpolation_tpu_torch.models.optimizer import (
     _SEG_SCHEDULE,
     OptimizeConfig,
     _resolve_backend,
+    optimize_mll_batch,
     optimize_mll_chunked,
     routed_nystroem_m,
 )
@@ -376,7 +380,6 @@ def _optimize_bucket(
         cap = cfg.seed_opt_n
     if cfg.opt_n_max and cap > cfg.opt_n_max:
         cap = cfg.opt_n_max
-
     h0_all = np.tile(np.asarray(x0, dtype)[None], (len(full_b), 1))
     chained = False
     if init_at_cells is not None:
@@ -459,6 +462,43 @@ def _optimize_bucket(
     _stage(stats, prefix + "opt", cap, len(full_b), t_opt, int(opt_all.iters.sum()),
            converged=int(opt_all.converged.sum()), **_objective(fine_backend))
     return lh_all
+
+
+def _fit_adam(full_b: NeighborhoodBatch, x0: np.ndarray, prior_rows: np.ndarray,
+              cfg: DailyConfig, opt_cfg: OptimizeConfig, dtype, device: torch.device,
+              stats: Optional[list]) -> np.ndarray:
+    """The Adam fit of a bucket (``daily.py:903-927``): every row from x0 at
+    the bucket's full capacity, on the objective ``opt_cfg`` routes there,
+    in tiles of one size that the chunk model gives for that objective and
+    the restarts' rows. Returns the (B, 5) log-hypers on the host.
+
+    The valid points are shuffled first where the L-BFGS fit would take a
+    subsample (``opt_n_max``) or the Nystrom objective's landmarks
+    (``daily.py:497-513``), so a row's points stand in the JAX package's
+    order."""
+    t0 = time.perf_counter()
+    n = full_b.capacity
+    cap = min(n, cfg.opt_n_max) if cfg.opt_n_max else n
+    if cap < n or routed_nystroem_m(opt_cfg, cap):
+        _permute_valid_points(full_b)
+    backend = _resolve_backend(opt_cfg, n)
+    # a cell's restarts are rows of the same launch: bytes a cell = restarts x a row's
+    tile = _chunk_rows(n, len(full_b), cfg, dtype.itemsize * opt_cfg.restarts, backend)
+    lh = np.empty((len(full_b), 5), dtype)
+    converged = iters = 0
+    for s, b in zip(range(0, len(full_b), tile), _chunks_of(full_b, tile)):
+        take = min(tile, len(full_b) - s)
+        prior = np.zeros(tile, dtype)
+        prior[:take] = prior_rows[s : s + take]
+        x, z, m = (torch.from_numpy(a).to(device) for a in (b.x, b.z, b.mask))
+        h0 = torch.from_numpy(np.tile(np.asarray(x0, dtype)[None], (tile, 1))).to(device)
+        res = optimize_mll_batch(h0, x, z - torch.from_numpy(prior).to(device)[:, None], m,
+                                 opt_cfg)
+        lh[s : s + take] = res.log_hypers[:take].cpu().numpy()
+        converged += int(res.converged[:take].sum())
+        iters += int(res.iters[:take].sum())
+    _stage(stats, "opt", n, len(full_b), t0, iters, converged=converged, **_objective(backend))
+    return lh
 
 
 def _predict_bucket(full_b: NeighborhoodBatch, lh_rows: np.ndarray, prior_cells, prior_fill,

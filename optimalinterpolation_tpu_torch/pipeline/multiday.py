@@ -45,6 +45,7 @@ from optimalinterpolation_tpu_torch.pipeline.daily import (
     DailyConfig,
     DailyResult,
     _filled_init,
+    _fit_adam,
     _log_rows,
     _optimize_bucket,
     _predict_bucket,
@@ -204,10 +205,13 @@ def _pass1(ctxs: list, priors: Sequence, grid_res_m: float, cfg: DailyConfig, op
     for capacity in sorted(per_cap):
         full_b, _ = _concat_buckets(per_cap[capacity], offsets, cfg.batch_multiple)
         prior_rows = _prior_rows(prior_cells, prior_fill, full_b.cell_index, dtype)
-        lh_all = _optimize_bucket(
-            full_b, x0, init_global, prior_rows, cfg, opt_cfg, dtype, device, stats,
-            seed_init=seed_init, hypers_only=hypers_only,
-        )
+        if opt_cfg.method == "adam":  # from x0 at full capacity
+            lh_all = _fit_adam(full_b, x0, prior_rows, cfg, opt_cfg, dtype, device, stats)
+        else:
+            lh_all = _optimize_bucket(
+                full_b, x0, init_global, prior_rows, cfg, opt_cfg, dtype, device, stats,
+                seed_init=seed_init, hypers_only=hypers_only,
+            )
         hyp = np.exp(lh_all.astype(np.float64))
         for hi, name in enumerate(HYPER_NAMES):
             _scatter_global(name, ctxs, offsets, full_b.cell_index, hyp[:, hi])
@@ -245,6 +249,10 @@ def interpolate_days(
       stats: optional list; one dict per stage, as ``interpolate_daily``
         appends them (a wave's stages cover all its days).
 
+    With ``config.opt.method == "adam"`` a wave holds one day (as in the
+    JAX package; more raise ValueError), and the day's fit is
+    ``daily._fit_adam``: no seed pass, no cascade, ``init_hypers`` unused.
+
     Each predicted bucket logs one INFO record with args ``(N, cells, tile
     rows, seconds)``; each stage one INFO record ``stage {...}``.
     """
@@ -256,6 +264,9 @@ def interpolate_days(
     if len(priors) != len(days):
         raise ValueError("priors must align with days")
     opt_cfg = dataclasses.replace(cfg.opt, kind=cfg.kind, jitter=cfg.jitter)
+    if opt_cfg.method != "lbfgs" and len(days) > 1:  # multiday.py:194-195
+        raise ValueError("interpolate_days supports method='lbfgs' only for a wave of "
+                         "more than one day")
 
     ctxs = [_day_ctx(ds, d, cfg, dtype) for d in days]
 
@@ -273,7 +284,7 @@ def interpolate_days(
         init_fields = [None if f is None else _filled_init(f, ds, c.sie_day)
                        for f, c in zip(init_hypers, ctxs)]
     seed_init = False
-    if cfg.spatial_seed_stride > 1 and init_fields is None:
+    if cfg.spatial_seed_stride > 1 and init_fields is None and opt_cfg.method == "lbfgs":
         # Phase A, combined over the wave: cold-fit each day's seed
         # sublattice, hypers only; phase B starts every day's cells from its
         # nearest seed (DailyConfig.spatial_seed_stride). At least 8 seeds

@@ -456,3 +456,66 @@ def test_quicklook_day_profile_on_card_names_k1_and_k2(card, tmp_path):
     assert sum("k1_factor_invert_kernel" in n for n in kernels) == k1
     assert sum("k2_predict_kernel" in n for n in kernels) == k2
     assert not any("k3_nll_kernel" in n for n in kernels)
+
+
+def test_adam_chunk_on_card_follows_the_twin(card):
+    """One Adam chunk through K3 (N = 512): 30 value + gradient launches and
+    one value launch, and the float32 fit on the card ends where the float32
+    twin's does on the CPU (log-hypers within 1e-3, NLL within 1e-4
+    relative: Adam's normalized steps carry float32 rounding, not amplify
+    it); the NaN row stays NaN."""
+    from optimalinterpolation_tpu_torch.models.optimizer import OptimizeConfig, optimize_mll_batch
+
+    h, x, y, m = _k3_problem(np.random.default_rng(11), 8, 512, card)
+    h = h.clone()
+    h[:-1] = torch.log(torch.tensor([25e3, 25e3, 1.0, 1.0, 0.1], device=card))
+    cfg = OptimizeConfig(method="adam", max_iters=30, jitter=1e-6)
+    before = (fused_gp.gp_nll.launches, fused_gp.gp_nll_and_grad.launches)
+    got = optimize_mll_batch(h, x, y, m, cfg)
+    assert (fused_gp.gp_nll.launches - before[0], fused_gp.gp_nll_and_grad.launches
+            - before[1]) == (1, 30)
+    twin = optimize_mll_batch(*(a.cpu() for a in (h, x, y, m)), cfg)
+    ok = slice(0, -1)
+    torch.testing.assert_close(got.log_hypers.cpu()[ok], twin.log_hypers[ok], rtol=0, atol=1e-3)
+    torch.testing.assert_close(got.nll.cpu()[ok], twin.nll[ok], rtol=1e-4, atol=1e-4)
+    assert bool(torch.isnan(got.log_hypers[-1]).all())
+    assert (got.iters == 30).all()
+
+
+def test_cell_command_on_card(card, tmp_path):
+    """``cell`` on the card, float32, at a 100 km season's cell with a
+    300 km radius (464 points, the 512 bucket): exact (L-BFGS through K3,
+    and Adam), Nystrom (BFGS) and a short SVGP give finite means and
+    std > 0, Nystrom within 0.05 m of the exact mean; the exact fits launch
+    K3, the others none of the kernels."""
+    import contextlib
+    import io
+    import json
+
+    from optimalinterpolation_tpu_torch import cli
+    from optimalinterpolation_tpu_torch.data.synthetic import make_synthetic_season
+
+    d = str(tmp_path)
+    make_synthetic_season(d, grid_res_km=100, n_days=9, seed=7, noise_std=0.1,
+                          tracks_per_day=(10, 3, 8, 8))
+    base = ["cell", "--datapath", d, "--grid-res", "100", "--radius-km", "300",
+            "--prior-mean", "0.15", "--x", "4e6", "--y", "3.5e6", "--max-iters", "30"]
+    counted = (blocked_gp._factor_invert, fused_gp.gp_predict, fused_gp.gp_nll,
+               fused_gp.gp_nll_and_grad)
+    lines, launched = {}, {}
+    for name, extra in (("exact", []), ("adam", ["--optimizer", "adam"]),
+                        ("nystroem", ["--method", "nystroem", "--landmarks", "128"]),
+                        ("svgp", ["--method", "svgp", "--svgp-iters", "300"])):
+        before = [fn.launches for fn in counted]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(base + extra)
+        lines[name] = json.loads(out.getvalue().strip().splitlines()[-1])
+        launched[name] = [fn.launches - b for fn, b in zip(counted, before)]
+    assert lines["exact"]["n_points"] > 100
+    assert launched["exact"][2] > 0 and launched["exact"][3] > 0
+    assert launched["adam"][2:] == [1, 30]
+    assert launched["nystroem"] == launched["svgp"] == [0, 0, 0, 0]
+    for name, line in lines.items():
+        assert np.isfinite(line["mean"]) and line["std"] > 0, name
+    assert abs(lines["nystroem"]["mean"] - lines["exact"]["mean"]) < 0.05, lines

@@ -289,7 +289,8 @@ def test_cli_daily_without_hypers_runs_the_two_pass_day(tmp_path, capsys):
 
 def test_port_never_imports_jax():
     """Every module of the port, and chip_smoke.py, imports without JAX, the
-    JAX package or h5py (which only the quicklook NetCDFs need)."""
+    JAX package, h5py (which only the quicklook NetCDFs need) or matplotlib
+    (which only ``cell --figure`` needs)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import optimalinterpolation_tpu_torch as p\n"
@@ -298,10 +299,11 @@ def test_port_never_imports_jax():
         "        importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "need = [p.__name__ + '.' + m for m in ('pipeline.multiday', 'pipeline.season', "
-        "'io.quicklook', 'data.projection')]\n"
+        "'io.quicklook', 'data.projection', 'models.nystroem', 'models.svgp', 'models.bfgs', "
+        "'viz')]\n"
         "assert all(m in sys.modules for m in need), need\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
-        "'optimalinterpolation_tpu', 'h5py'))\n"
+        "'optimalinterpolation_tpu', 'h5py', 'matplotlib'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -182,3 +182,19 @@ def test_nonfinite_row_gives_inf_and_nan_gradient():
     keep = [0, 2]
     torch.testing.assert_close(v[keep], v_ok[keep], rtol=0, atol=0)
     torch.testing.assert_close(g[keep], g_ok[keep], rtol=1e-12, atol=0)
+
+
+def test_plain_factor_matches_chol_inv():
+    """``factor=chol_inv_plain`` (one library Cholesky of each (M, M)
+    matrix, autograd) gives chol_inv's value and gradient, a NaN row's inf
+    and NaN gradient included."""
+    h, x, y, mask = _problem(8, b=3, n=384, n_valid=330)
+    h[2] = np.nan
+    v, g = TN.gp_nll_and_grad_nystroem(*_t(h, x, y, mask), 256, jitter=1e-6)
+    vp, gp = TN.gp_nll_and_grad_nystroem(*_t(h, x, y, mask), 256, jitter=1e-6,
+                                         factor=TN.chol_inv_plain)
+    np.testing.assert_allclose(vp.numpy(), v.numpy(), rtol=1e-11, atol=0)
+    np.testing.assert_allclose(gp[:2].numpy(), g[:2].numpy(), rtol=1e-8, atol=1e-10)
+    assert torch.isinf(vp[2]) and torch.isnan(gp[2]).all()
+    vv = TN.gp_nll_nystroem(*_t(h, x, y, mask), 256, jitter=1e-6, factor=TN.chol_inv_plain)
+    torch.testing.assert_close(vv, vp, rtol=0, atol=0)

@@ -192,8 +192,8 @@ def test_nonfinite_start_stops_at_once():
 def test_config_rejects_unknown_options():
     with pytest.raises(ValueError):
         TO.OptimizeConfig(backend="cusolver")
-    with pytest.raises(ValueError):
-        TO.OptimizeConfig(method="adam")
+    with pytest.raises(ValueError, match="unknown method"):
+        TO.OptimizeConfig(method="sgd")
     with pytest.raises(ValueError, match="multiple of 128"):
         TO.OptimizeConfig(nystroem_m=200)
 
