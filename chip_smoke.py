@@ -123,6 +123,24 @@ phase:
              hypers against a float64 Adam run of the same cells from x0
              (median <= 0.05, mean <= 0.7 nats). Day wall, cells/s, stage
              walls, launches, peak memory, rmse beside the L-BFGS day's.
+ 13. devices ``cell_sharding`` (``parallel/mesh.py``): (a) the fit phase's
+             day through ``interpolate_daily(..., cell_sharding=
+             cell_sharding(make_mesh(devices=["cuda:0", "cuda:0"])))``, two
+             host threads and two streams on one card, at the fit phase's
+             configuration: the five hyper fields bit-equal to the fit
+             phase's, every other field within 1e-6 m (1e-6 relative for lZ
+             and the smoothed hypers), each field's largest deviation and
+             bit-equality printed, rmse within 1e-6 m, K1, K2 and both K3
+             variants launched on each shard's stream; the merged stage
+             entries, day, fit and predict walls, host syncs (also by
+             shard), each shard's wall, peak memory and a probe of the
+             interpreter lock's wait, beside the fit phase's one-shard
+             numbers. (b) The slice phase's quicklook day on the same two
+             shards: within 1e-6 m of the slice phase, K1 and K2 on each
+             shard's stream, K3 not. (c) With two or more cards, the day
+             through ``cli.main(["daily", ..., "--devices", N])`` over all
+             N, with (a)'s gates; on one card ``"multi_card": "not run: 1
+             card"``.
 
 The fit phase's day must also give an earlier run's launches and rmse to
 the bit (``EARLIER_FIT``): the gather's arrays do not depend on how it
@@ -700,7 +718,7 @@ def phase_slice(tmp: str, day: _Day) -> dict:
            rmse_vs_truth_m=day.rmse(res[f"{date}_interp_smth"]),
            launches=launches, buckets=buckets,
            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return launches
+    return {**launches, "result": res, "hypers_npz": hyp}
 
 
 def _check_optimum(day: _Day, res, date, fit_batches=None) -> dict:
@@ -833,11 +851,10 @@ def phase_fit(tmp: str, day: _Day) -> dict:
     stages = _stage_entries(handler.stages)
     fitted = [e for e in stages if e["stage"] == "opt"]
     n_active = int(day.active.sum())
+    fit_s, predict_s = _fit_predict_walls(stages)
     _phase("fit", date=date, active_cells=n_active, cut="none: the whole day",
            day_wall_s=day_s, cells_per_s_day=n_active / day_s,
-           fit_wall_s=sum(e["wall_s"] for e in stages if "opt" in e["stage"]
-                          or "cascade" in e["stage"]),
-           predict_wall_s=sum(e["wall_s"] for e in stages if e["stage"] in ("predict", "pass2")),
+           fit_wall_s=fit_s, predict_wall_s=predict_s,
            converged_share=sum(e["converged_share"] * e["cells"] for e in fitted)
            / sum(e["cells"] for e in fitted),
            host_syncs=syncs, launches=launches,
@@ -859,7 +876,16 @@ def phase_fit(tmp: str, day: _Day) -> dict:
            optimum_vs_f64={str(n): v for n, v in optimum.items()})
     _gate_optimum(optimum, date)
     return {**launches, "day_wall_s": day_s, "cells": n_active,
-            "k3_value_launches": launches["K3 value"], "rmse_vs_truth_m": rmse}
+            "k3_value_launches": launches["K3 value"], "rmse_vs_truth_m": rmse,
+            "fit_wall_s": fit_s, "predict_wall_s": predict_s, "host_syncs": syncs,
+            "peak_mem_gb": peak, "stages": stages, "result": res}
+
+
+def _fit_predict_walls(stages) -> tuple:
+    """The fit wall (seed pass, cascade and fine stages) and the predict
+    wall (pass 1 and pass 2) of a day's stage entries."""
+    return (sum(e["wall_s"] for e in stages if "opt" in e["stage"] or "cascade" in e["stage"]),
+            sum(e["wall_s"] for e in stages if e["stage"] in ("predict", "pass2")))
 
 
 def _gate_optimum(optimum: dict, date: str) -> None:
@@ -1344,13 +1370,21 @@ def _counts() -> dict:
             "K3 value": fused_gp.gp_nll.launches, "K3 grad": fused_gp.gp_nll_and_grad.launches}
 
 
-def _zero_counts() -> None:
-    from optimalinterpolation_tpu_torch.models import optimizer
+def _wrappers() -> tuple:
+    """The kernels' wrappers, in the order of ``_counts``."""
     from optimalinterpolation_tpu_torch.ops import blocked_gp, fused_gp
 
-    for fn in (blocked_gp._factor_invert, fused_gp.gp_predict, fused_gp.gp_nll,
-               fused_gp.gp_nll_and_grad):
+    return (blocked_gp._factor_invert, fused_gp.gp_predict, fused_gp.gp_nll,
+            fused_gp.gp_nll_and_grad)
+
+
+def _zero_counts() -> None:
+    from optimalinterpolation_tpu_torch.models import optimizer
+    from optimalinterpolation_tpu_torch.ops import fused_gp
+
+    for fn in _wrappers():
         fn.launches = 0
+        fn.streams.clear()
     fused_gp.gp_nll.rows.clear()
     optimizer._lbfgs_segment.host_syncs = 0
 
@@ -1978,6 +2012,241 @@ def phase_adam(tmp: str, fit: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# devices: the fit phase's day and the quicklook day, cells sharded
+# ---------------------------------------------------------------------------
+
+KERNEL_NAMES = ("K1", "K2", "K3 value", "K3 grad")  # the order of _wrappers()
+SHARD_TOL_M = 1e-6  # a sharded day's fields against the one-shard day's
+
+
+class _GilProbe:
+    """A thread that sleeps 1 ms at a time and measures how late it gets
+    the interpreter lock back: while the shards run, the wait of any thread
+    that asks for the lock. Its wake-ups over 0.3 s before the run are the
+    idle baseline (the timer's own lateness)."""
+
+    def __init__(self):
+        import threading
+
+        self.waits = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            t0 = time.perf_counter()
+            time.sleep(1e-3)
+            self.waits.append((t0, time.perf_counter() - t0 - 1e-3))
+
+    def __enter__(self):
+        self._thread.start()
+        time.sleep(0.3)
+        self.t_run = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+
+    def report(self) -> dict:
+        def summary(w):
+            w = np.asarray(w) * 1e3
+            return {"wakeups": len(w), "wait_ms_mean": float(w.mean()),
+                    "wait_ms_p95": float(np.quantile(w, 0.95)),
+                    "share_over_0.5ms": float((w > 0.5).mean())}
+
+        return {"idle": summary([w for t, w in self.waits if t < self.t_run]),
+                "during_run": summary([w for t, w in self.waits if t >= self.t_run])}
+
+
+def _tallied_sharding(devices):
+    """A ``CellSharding`` that also adds up, for each shard, the wall of its
+    calls and the host synchronisations its thread made (through a wrapper
+    of ``utils.counters.bump``; ``close()`` removes it)."""
+    import collections
+    import threading
+
+    from optimalinterpolation_tpu_torch.parallel.mesh import CellSharding
+    from optimalinterpolation_tpu_torch.utils import counters
+
+    local, lock = threading.local(), threading.Lock()
+    bump = counters.bump
+
+    class Tallied(CellSharding):
+        walls = collections.Counter()
+        syncs = collections.Counter()
+
+        def map(self, n_rows, fn, batch_multiple=1):
+            shard_of = {rows.start: i for i, rows in self.split(n_rows, batch_multiple)}
+
+            def timed(rows, dev):
+                local.shard = shard_of[rows.start]
+                t0 = time.perf_counter()
+                try:
+                    return fn(rows, dev)
+                finally:
+                    with lock:
+                        self.walls[local.shard] += time.perf_counter() - t0
+                    local.shard = None
+
+            return super().map(n_rows, timed, batch_multiple)
+
+        @staticmethod
+        def close():
+            counters.bump = bump
+
+    def tallied_bump(owner, name, by=1):
+        bump(owner, name, by)
+        shard = getattr(local, "shard", None)
+        if name == "host_syncs" and shard is not None:
+            with lock:
+                Tallied.syncs[shard] += by
+
+    counters.bump = tallied_bump
+    return Tallied(devices)
+
+
+def _shard_launches(sharding) -> dict:
+    """Launches of each kernel on each shard's stream, in the last run."""
+    streams = [sharding.stream(i).cuda_stream for i in range(len(sharding))]
+    return {name: [fn.streams[st] for st in streams]
+            for name, fn in zip(KERNEL_NAMES, _wrappers())}
+
+
+def _compare_days(got: dict, ref: dict, date: str) -> dict:
+    """Each field of ``got`` against ``ref``: NaN cells equal, the largest
+    deviation (absolute for the metre fields, relative for lZ and the
+    hypers) and whether the field is bit-equal."""
+    out = {}
+    for key, r in ref.items():
+        g = got[key]
+        if not np.array_equal(np.isnan(g), np.isnan(r)):
+            _fail(f"{key}: the sharded day's NaN cells differ from the one-shard day's")
+        fin = np.isfinite(r)
+        d = np.abs(g[fin] - r[fin])
+        rel = not key.endswith(("_interp", "_interp_error", "_interp_smth",
+                                "_interp_error_smth"))
+        if rel:
+            d = d / np.maximum(np.abs(r[fin]), 1e-300)
+        out[key[len(date) + 1:]] = {"max_dev": float(d.max()) if d.size else 0.0,
+                                    "relative": rel,
+                                    "bit_equal": bool(np.array_equal(g, r, equal_nan=True))}
+    return out
+
+
+def _gate_sharded(cmp: dict, what: str, hypers_bit_equal: bool) -> None:
+    for field, c in cmp.items():
+        if hypers_bit_equal and field in HYPERS and not c["bit_equal"]:
+            _fail(f"{what}: the {field} field is not bit-equal to the one-shard day's "
+                  f"(max deviation {c['max_dev']})")
+        if not c["max_dev"] <= SHARD_TOL_M:
+            _fail(f"{what}: {field} deviates {c['max_dev']} from the one-shard day "
+                  f"(> {SHARD_TOL_M}{' relative' if c['relative'] else ' m'})")
+
+
+def phase_devices(tmp: str, day: _Day, quick: dict, fit: dict) -> dict:
+    """Phase 13: (a) the fit phase's day with its cells on two shards of
+    ``cuda:0`` (two host threads, two streams), (b) the slice phase's
+    quicklook day on the same two shards, (c) the day through ``daily
+    --devices N`` over every card where there are two or more. Returns (a)'s
+    launches."""
+    from optimalinterpolation_tpu_torch.data.reader import read_freeboard_season
+    from optimalinterpolation_tpu_torch.models import optimizer
+    from optimalinterpolation_tpu_torch.models.optimizer import OptimizeConfig
+    from optimalinterpolation_tpu_torch.pipeline.daily import DailyConfig, interpolate_daily
+
+    ds = read_freeboard_season(tmp, RES_KM, "2018-2019")
+    # the daily command's defaults, those of the fit phase's day
+    cfg = DailyConfig(opt=OptimizeConfig(ftol_abs=1e-3), jitter=1e-6)
+    log = logging.getLogger("optimalinterpolation_tpu_torch.pipeline.daily")
+    log.setLevel(logging.INFO)
+    out = {}
+    for name, kw, ref in (("two_shards", {}, fit),
+                          ("quicklook_two_shards", {"precomputed_hypers": quick["hypers_npz"]},
+                           quick)):
+        sharding = _tallied_sharding(["cuda:0", "cuda:0"])
+        handler = _DailyLog()
+        log.addHandler(handler)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        try:
+            with _GilProbe() as probe:
+                t0 = time.perf_counter()
+                res = interpolate_daily(ds, DAY, PRIOR, cfg, cell_sharding=sharding, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            log.removeHandler(handler)
+            sharding.close()
+        launches = _counts()
+        per_shard = _shard_launches(sharding)
+        syncs = optimizer._lbfgs_segment.host_syncs
+        res = res.to_reference_dict()
+        date = day.date
+        cmp = _compare_days(res, ref["result"], date)
+        stages = _stage_entries(handler.stages)
+        fit_s, predict_s = _fit_predict_walls(stages)
+        rmse = day.rmse(res[f"{date}_interp_smth"])
+        ref_rmse = day.rmse(ref["result"][f"{date}_interp_smth"])
+        line = {
+            "shards": ["cuda:0", "cuda:0"], "active_cells": int(day.active.sum()),
+            "day_wall_s": wall, "fit_wall_s": fit_s, "predict_wall_s": predict_s,
+            "host_syncs": syncs, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches, "launches_by_shard_stream": per_shard,
+            "shard_wall_s": [sharding.walls[i] for i in range(2)],
+            "shard_host_syncs": [sharding.syncs[i] for i in range(2)],
+            "gil_probe": probe.report(), "rmse_vs_truth_m": rmse,
+            "rmse_one_shard_m": ref_rmse, "vs_one_shard": cmp,
+            "bucket_tiles": [list(b) for b in handler.buckets], "stages": stages,
+        }
+        if name == "two_shards":
+            line["one_shard_this_run"] = {
+                k: fit[k] for k in ("day_wall_s", "fit_wall_s", "predict_wall_s",
+                                    "host_syncs", "peak_mem_gb", "stages")}
+            line["one_shard_this_run"]["note"] = ("through cli.main: the season read and "
+                                                  "the pickle write inside the day wall")
+        else:
+            line["one_shard_this_run"] = {"day_wall_s": None,
+                                          "note": "the slice phase's line has its walls"}
+        _phase("devices", case=name, **line)
+        _gate_sharded(cmp, name, hypers_bit_equal=name == "two_shards")
+        if not abs(rmse - ref_rmse) <= SHARD_TOL_M:
+            _fail(f"{name}: rmse {rmse} against the one-shard day's {ref_rmse}")
+        want = KERNEL_NAMES if name == "two_shards" else ("K1", "K2")
+        if any(min(per_shard[k]) == 0 for k in want):
+            _fail(f"{name}: not every kernel launched on each shard's stream: {per_shard}")
+        if name != "two_shards" and (launches["K3 value"] or launches["K3 grad"]):
+            _fail(f"{name}: the quicklook day launched K3: {launches}")
+        out[name] = launches
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        _phase("devices", case="multi_card", multi_card=f"not run: {n_cards} card")
+        return out["two_shards"]
+    torch.cuda.reset_peak_memory_stats()
+    res, date, launches, syncs, wall, handler = _run_daily(tmp, ["--devices", str(n_cards)])
+    stages = _stage_entries(handler.stages)
+    fit_s, predict_s = _fit_predict_walls(stages)
+    cmp = _compare_days(res, fit["result"], date)
+    streams = {name: sum(1 for v in fn.streams.values() if v)
+               for name, fn in zip(KERNEL_NAMES, _wrappers())}
+    rmse = day.rmse(res[f"{date}_interp_smth"])
+    _phase("devices", case="multi_card", cards=n_cards, day_wall_s=wall, fit_wall_s=fit_s,
+           predict_wall_s=predict_s, host_syncs=syncs, launches=launches,
+           streams_with_launches=streams,
+           peak_mem_gb_card0=torch.cuda.max_memory_allocated(0) / 1e9,
+           rmse_vs_truth_m=rmse, vs_one_shard=cmp, stages=stages,
+           one_shard_day_wall_s=fit["day_wall_s"])
+    _gate_sharded(cmp, "multi_card", hypers_bit_equal=True)
+    if not abs(rmse - fit["rmse_vs_truth_m"]) <= SHARD_TOL_M:
+        _fail(f"multi_card: rmse {rmse} against the one-shard day's {fit['rmse_vs_truth_m']}")
+    if any(v < n_cards for v in streams.values()):
+        _fail(f"multi_card: not every kernel launched on {n_cards} streams: {streams}")
+    return out["two_shards"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False")
@@ -2006,6 +2275,7 @@ def main() -> int:
         objectives = timed("objectives", phase_objectives, day)
         cell = timed("cell", phase_cell, tmp, day)
         adam = timed("adam", phase_adam, tmp, fit)
+        devices = timed("devices", phase_devices, tmp, day, quick, fit)
     with tempfile.TemporaryDirectory() as tmp:
         season = timed("season", phase_season, fit, tmp)
         chain = timed("chain", phase_chain, tmp, season)
@@ -2015,7 +2285,8 @@ def main() -> int:
         return {"launches": fit[name], "launches_by_path": {
             "quicklook": quick[name], "fit": fit[name],
             "season": {wave: season[wave][name] for wave in ("cold", "chained")},
-            "chain": chain[name], "cell": cell[name], "adam": adam[name]}}
+            "chain": chain[name], "cell": cell[name], "adam": adam[name],
+            "devices (two shards)": devices[name]}}
 
     k1_paths = paths("K1")
     k1_paths["launches_by_path"].update(objectives)
@@ -2043,7 +2314,9 @@ def main() -> int:
                               "chain": {"value": chain["K3 value"],
                                         "grad": chain["K3 grad"]},
                               "cell": {"value": cell["K3 value"], "grad": cell["K3 grad"]},
-                              "adam": {"value": adam["K3 value"], "grad": adam["K3 grad"]}},
+                              "adam": {"value": adam["K3 value"], "grad": adam["K3 grad"]},
+                              "devices (two shards)": {"value": devices["K3 value"],
+                                                       "grad": devices["K3 grad"]}},
          "launched_by": ["fit (seed pass, cascade, fine stage)", waves,
                          "cell (exact, L-BFGS and Adam, N <= 1024)",
                          "Adam day (every step at N <= 1024)"], **k3},

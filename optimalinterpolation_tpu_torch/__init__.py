@@ -19,7 +19,9 @@ Layer map:
   native/    the C++ host data plane (radius search, .proc parser), g++
   io/        reference-compatible pickles, quicklook NetCDFs
   pipeline/  the day, waves of days, the season
-  utils/     stage timers, the profiler trace
+  parallel/  cell sharding: a bucket's rows over several devices, one host
+             thread a shard (``--devices``)
+  utils/     stage timers, the profiler trace, the locked launch counters
   csrc/      CUDA C++ sources of K1, K2 and K3 (sm_90a)
   validation.py, viz.py (figures, matplotlib), cli.py
 """

@@ -28,7 +28,9 @@ writes. ``--device`` picks the card or, for tests and small runs, ``cpu``;
 ``--profile LOGDIR`` writes a ``torch.profiler`` Chrome trace of the run.
 ``--optimizer adam`` fits with Adam instead of L-BFGS (``daily``, ``season``
 with waves of one day, ``cell --method exact``). ``cell --figure`` needs
-matplotlib.
+matplotlib. ``--devices N`` shards every bucket's cells over N devices of
+``--device``'s type (``daily``, ``season``; ``cell`` takes it and, as in the
+JAX package, fits its one cell on one device).
 """
 
 from __future__ import annotations
@@ -89,6 +91,8 @@ def _add_daily_args(p):
     p.add_argument("--device", default="cuda",
                    help="torch device that runs the fit and the predict "
                         "(default cuda)")
+    p.add_argument("--devices", type=int, default=None,
+                   help="shard cells across this many devices")
     p.add_argument("--profile", default=None, metavar="LOGDIR",
                    help="write a torch.profiler trace of the run (host, and "
                         "the card's kernels) to LOGDIR (TensorBoard/Perfetto)")
@@ -115,6 +119,19 @@ def _prior(args, ds):
         fyi = np.load(args.fyi)
         return lambda day: constant_fyi_prior(fyi, day, offset=args.fyi_offset)
     raise SystemExit("provide --prior-mean or --fyi")
+
+
+def _sharding(args):
+    """None for one ``--device``; with ``--devices N``, the cells of every
+    bucket sharded over N devices of ``--device``'s type (N CPU shards with
+    ``--device cpu``). Raises where N cards do not exist."""
+    if args.devices is None:
+        return None
+    import torch
+
+    from optimalinterpolation_tpu_torch.parallel.mesh import cell_sharding, make_mesh
+
+    return cell_sharding(make_mesh(args.devices, kind=torch.device(args.device).type))
 
 
 def _profile(args):
@@ -167,8 +184,8 @@ def cmd_daily(args):
     ds, cfg = _setup(args)
     prior = _prior(args, ds)(args.day)
     with _profile(args):
-        res = interpolate_daily(ds, args.day, prior, cfg,
-                                precomputed_hypers=args.hypers, device=args.device)
+        res = interpolate_daily(ds, args.day, prior, cfg, precomputed_hypers=args.hypers,
+                                device=args.device, cell_sharding=_sharding(args))
     os.makedirs(args.outdir, exist_ok=True)
     out = os.path.join(args.outdir, f"CS2S3_{res.date}_{ds.grid_res_km}km.pkl")
     save_pickle(res.to_reference_dict(), out)
@@ -332,8 +349,8 @@ def cmd_season(args):
                        day_parallel=args.day_parallel)
     prior_fn = _prior(args, ds)
     with _profile(args):
-        run_season(ds, cfg, days=args.days, prior_fn=prior_fn,
-                   precomputed_hypers=args.hypers, device=args.device)
+        run_season(ds, cfg, days=args.days, prior_fn=prior_fn, precomputed_hypers=args.hypers,
+                   device=args.device, cell_sharding=_sharding(args))
 
 
 def _scan_results(indir: str, grid_res: int) -> list[tuple[str, str]]:

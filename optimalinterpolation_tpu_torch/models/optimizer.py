@@ -38,6 +38,7 @@ import torch
 from optimalinterpolation_tpu_torch.models import exact_gp
 from optimalinterpolation_tpu_torch.ops import blocked_gp, fused_gp, nystroem_gp
 from optimalinterpolation_tpu_torch.ops import kernels as K
+from optimalinterpolation_tpu_torch.utils import counters
 
 __all__ = [
     "OptimizeConfig",
@@ -357,7 +358,7 @@ def _lbfgs_init(vg_fn: Callable, h0: torch.Tensor) -> LbfgsState:
 def _rows_of(flags: torch.Tensor) -> Optional[torch.Tensor]:
     """The indices of the set flags, None where every flag is set. Their
     number comes to the host: a synchronisation, counted."""
-    _lbfgs_segment.host_syncs += 1
+    counters.bump(_lbfgs_segment, "host_syncs")
     rows = torch.nonzero(flags)[:, 0]
     return None if rows.numel() == flags.numel() else rows
 
@@ -673,7 +674,7 @@ def optimize_mll_chunked(
                 ))
             _write_rows(full, rows, st)
         idx = torch.nonzero(full.live(knobs))[:, 0]  # its size comes to the host
-        _lbfgs_segment.host_syncs += 1
+        counters.bump(_lbfgs_segment, "host_syncs")
         iters_done += seg
         sweep += 1
     return _result(full, knobs, r)

@@ -9,22 +9,24 @@ the CPU tests import every module on a machine without ``nvcc``.
 
 Every C entry takes its tensors as raw device pointers, then the device index
 and PyTorch's current stream, and returns ``cudaGetLastError()`` after the
-launch; :func:`launch` raises if that is not 0.
+launch; :func:`launch` raises if that is not 0. The C entries set the device
+on the calling thread, and the first use is safe from several threads at
+once (cell sharding, ``parallel.mesh``): one lock guards the build and load.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
 
-__all__ = ["build", "check", "launch"]
+__all__ = ["build", "check", "launch", "load"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
@@ -70,7 +72,7 @@ def build() -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    tag = f"{lib.stem}.{os.getpid()}"
+    tag = f"{lib.stem}.{os.getpid()}.{threading.get_ident()}"
     objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
     procs = [
         subprocess.Popen(
@@ -99,16 +101,24 @@ def build() -> Path:
     return lib
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _ENTRIES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    lib.oi_error_string.argtypes = [ctypes.c_int]
-    lib.oi_error_string.restype = ctypes.c_char_p
-    return lib
+_LOAD_LOCK = threading.Lock()
+_LOADED: list = []  # the loaded library, once
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' library, built (:func:`build`) and loaded at the first
+    call; later calls, from any thread, return the same one."""
+    with _LOAD_LOCK:
+        if not _LOADED:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _ENTRIES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.oi_error_string.argtypes = [ctypes.c_int]
+            lib.oi_error_string.restype = ctypes.c_char_p
+            _LOADED.append(lib)
+        return _LOADED[0]
 
 
 def check(t: torch.Tensor, name: str, shape: tuple) -> None:
@@ -123,11 +133,11 @@ def check(t: torch.Tensor, name: str, shape: tuple) -> None:
         raise ValueError(f"{name}: kernel needs a contiguous tensor")
 
 
-def launch(entry: str, device: torch.device, *args) -> None:
+def launch(entry: str, device: torch.device, *args) -> int:
     """Call C entry ``entry`` with ``args`` (tensors passed as device
     pointers), then the device index and the current stream; raise on a
-    launch error."""
-    lib = _library()
+    launch error. Returns the stream (``cudaStream_t`` as an int)."""
+    lib = load()
     # a tensor goes as its device pointer; None is a null pointer
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -135,3 +145,4 @@ def launch(entry: str, device: torch.device, *args) -> None:
     if err != 0:
         msg = lib.oi_error_string(err).decode()
         raise RuntimeError(f"{entry}: CUDA error {err} ({msg})")
+    return stream

@@ -24,6 +24,7 @@ Math and conventions are those of ``models.exact_gp``:
 
 from __future__ import annotations
 
+import collections
 import math
 
 import torch
@@ -32,6 +33,7 @@ from optimalinterpolation_tpu_torch.models.exact_gp import PredictResult
 from optimalinterpolation_tpu_torch.ops import _cuda
 from optimalinterpolation_tpu_torch.ops import kernels as K
 from optimalinterpolation_tpu_torch.ops.kernels import Kernel
+from optimalinterpolation_tpu_torch.utils import counters
 
 __all__ = [
     "BLK", "PANEL", "refuse_tf32", "gp_nll_blocked", "gp_nll_blocked_with_factors",
@@ -67,7 +69,8 @@ def _factor_invert(d: torch.Tensor):
 
     P = 128 is the base case: **K1** on a CUDA tensor, its plain twin on a
     CPU tensor. Larger P recurses through :func:`_factor_invert_panel`.
-    ``_factor_invert.launches`` counts K1 launches.
+    ``_factor_invert.launches`` counts K1 launches and
+    ``_factor_invert.streams`` them by CUDA stream (``utils.counters``).
     """
     if d.shape[-1] != BLK:
         return _factor_invert_panel(d)
@@ -79,12 +82,13 @@ def _factor_invert(d: torch.Tensor):
     w = torch.empty_like(d)
     logdet = d.new_empty(b)
     ok = torch.empty(b, dtype=torch.bool, device=d.device)
-    _cuda.launch("oi_k1_factor_invert", d.device, d, l, w, logdet, ok, b)
-    _factor_invert.launches += 1
+    stream = _cuda.launch("oi_k1_factor_invert", d.device, d, l, w, logdet, ok, b)
+    counters.launched(_factor_invert, stream)
     return l, w, logdet, ok
 
 
 _factor_invert.launches = 0
+_factor_invert.streams = collections.Counter()
 
 
 def _factor_invert_panel(d: torch.Tensor):

@@ -36,6 +36,7 @@ from optimalinterpolation_tpu_torch.ops import _cuda
 from optimalinterpolation_tpu_torch.ops import kernels as K
 from optimalinterpolation_tpu_torch.ops import linalg as L
 from optimalinterpolation_tpu_torch.ops.kernels import Kernel
+from optimalinterpolation_tpu_torch.utils import counters
 
 __all__ = [
     "BLK", "supported", "gp_predict", "gp_predict_plain",
@@ -75,7 +76,8 @@ def gp_predict(
     kind: Kernel = Kernel.MATERN32,
     jitter: float = 0.0,
 ) -> PredictResult:
-    """Fused posterior predict. ``gp_predict.launches`` counts K2 launches."""
+    """Fused posterior predict. ``gp_predict.launches`` counts K2 launches
+    and ``gp_predict.streams`` them by CUDA stream (``utils.counters``)."""
     if x.device.type == "cpu":
         return gp_predict_plain(log_hypers, x, y, xstar, mask, mean, kind=kind, jitter=jitter)
     b, n, _ = x.shape
@@ -89,15 +91,16 @@ def gp_predict(
     a_scr = x.new_empty((b, n, n))
     w_scr = x.new_empty((b, n, BLK))
     out = x.new_empty((b, 5))
-    _cuda.launch(
+    stream = _cuda.launch(
         "oi_k2_predict", x.device, log_hypers, x, y, xstar, mask, mean,
         a_scr, w_scr, out, b, n, _KIND_ID[Kernel(kind)], float(jitter),
     )
-    gp_predict.launches += 1
+    counters.launched(gp_predict, stream)
     return PredictResult(out[:, 0], out[:, 1], out[:, 2], out[:, 3], out[:, 4] > 0.5)
 
 
 gp_predict.launches = 0
+gp_predict.streams = collections.Counter()
 
 
 def gp_nll_plain(
@@ -169,11 +172,11 @@ def _launch_k3(log_hypers, x, y, mask, kind, jitter, with_grad: bool):
     u_scr = x.new_empty((b, n, n)) if with_grad else None
     nll = x.new_empty((b,))
     grad = x.new_empty((b, 5)) if with_grad else None
-    _cuda.launch(
+    stream = _cuda.launch(
         "oi_k3_nll", x.device, log_hypers, x, y, mask, a_scr, u_scr, w_scr, nll, grad,
         b, n, _KIND_ID[Kernel(kind)], float(jitter), int(with_grad),
     )
-    return nll, grad
+    return nll, grad, stream
 
 
 def gp_nll(
@@ -185,18 +188,19 @@ def gp_nll(
     jitter: float = 0.0,
 ) -> torch.Tensor:
     """Batched masked GP NLL (B,), value only (the line search's
-    evaluations). ``gp_nll.launches`` counts K3 value launches and
-    ``gp_nll.rows[B]`` those of B rows."""
+    evaluations). ``gp_nll.launches`` counts K3 value launches,
+    ``gp_nll.rows[B]`` those of B rows and ``gp_nll.streams`` them by CUDA
+    stream."""
     if x.device.type == "cpu":
         return gp_nll_plain(log_hypers, x, y, mask, kind=kind, jitter=jitter)
-    nll, _ = _launch_k3(log_hypers, x, y, mask, kind, jitter, with_grad=False)
-    gp_nll.launches += 1
-    gp_nll.rows[x.shape[0]] += 1
+    nll, _, stream = _launch_k3(log_hypers, x, y, mask, kind, jitter, with_grad=False)
+    counters.launched(gp_nll, stream, rows=x.shape[0])
     return nll
 
 
 gp_nll.launches = 0
 gp_nll.rows = collections.Counter()
+gp_nll.streams = collections.Counter()
 
 
 def gp_nll_and_grad(
@@ -208,12 +212,14 @@ def gp_nll_and_grad(
     jitter: float = 0.0,
 ):
     """Batched masked GP NLL (B,) and its analytic (B, 5) gradient.
-    ``gp_nll_and_grad.launches`` counts K3 gradient launches."""
+    ``gp_nll_and_grad.launches`` counts K3 gradient launches and
+    ``gp_nll_and_grad.streams`` them by CUDA stream."""
     if x.device.type == "cpu":
         return gp_nll_and_grad_plain(log_hypers, x, y, mask, kind=kind, jitter=jitter)
-    out = _launch_k3(log_hypers, x, y, mask, kind, jitter, with_grad=True)
-    gp_nll_and_grad.launches += 1
-    return out
+    nll, grad, stream = _launch_k3(log_hypers, x, y, mask, kind, jitter, with_grad=True)
+    counters.launched(gp_nll_and_grad, stream)
+    return nll, grad
 
 
 gp_nll_and_grad.launches = 0
+gp_nll_and_grad.streams = collections.Counter()

@@ -29,7 +29,11 @@ Output keys replicate the reference result dict (``:290-307,333-334``).
 This module holds the day's configuration, results and per-bucket steps; the
 flow above runs in ``pipeline.multiday.interpolate_days``, of which
 :func:`interpolate_daily` is the wave of one day, so a day and a wave of
-days take one code path.
+days take one code path. The steps are cut so that a bucket's rows can be
+split over shards (``cell_sharding``, ``parallel.mesh``): what is decided
+on the whole bucket (:func:`_plan_fit`, :func:`_shuffle_for_adam`) runs
+once before the split, and :func:`_fit_rows`, :func:`_fit_adam` and
+:func:`_predict_bucket` run on any contiguous rows.
 """
 
 from __future__ import annotations
@@ -334,15 +338,26 @@ def _smooth_fields(grids: dict, vmaxes: dict, sie_day, std: float) -> dict:
     }
 
 
+class _ShardStats(list):
+    """One shard's stage entries (``parallel.mesh``): kept for the merge of
+    ``pipeline.multiday``, which records and logs one entry a stage."""
+
+
 def _stage(stats: Optional[list], stage: str, n: int, cells: int, t0: float,
            iters_sum: int = 0, **extra) -> None:
     """Record one finished stage: an entry of ``stats`` (where the caller
-    gave a list) and an INFO record with the same fields."""
-    entry = {"stage": stage, "n": n, "cells": cells, "wall_s": time.perf_counter() - t0,
-             "iters_sum": iters_sum, **extra}
+    gave a list) and an INFO record with the same fields (not for a
+    shard's own entries, which are merged first)."""
+    _record(stats, {"stage": stage, "n": n, "cells": cells, "wall_s": time.perf_counter() - t0,
+                    "iters_sum": iters_sum, **extra})
+
+
+def _record(stats: Optional[list], entry: dict) -> None:
+    """Append a stage entry to ``stats`` (where given) and log it."""
     if stats is not None:
         stats.append(entry)
-    logger.info("stage %s", entry)
+    if not isinstance(stats, _ShardStats):
+        logger.info("stage %s", entry)
 
 
 def _objective(backend: str) -> dict:
@@ -355,24 +370,38 @@ def _objective(backend: str) -> dict:
     return {"backend": backend}
 
 
-def _optimize_bucket(
-    full_b: NeighborhoodBatch,
-    x0: np.ndarray,
-    init_at_cells: Optional[np.ndarray],
-    prior_rows: np.ndarray,
-    cfg: DailyConfig,
-    opt_cfg: OptimizeConfig,
-    dtype,
-    device: torch.device,
-    stats: Optional[list],
-    seed_init: bool = False,
-    hypers_only: bool = False,
-) -> np.ndarray:
-    """Pass-1 hyperparameter optimization of one bucket: the warm-start
-    cascade (``DailyConfig.warmstart_n``) and the segmented, compacted fine
-    pass. Shuffles ``full_b``'s valid points in place where a subsample is
-    taken. Returns the (B, 5) optimized log-hypers on the host."""
-    prefix = "seed:" if hypers_only else ""  # of the stage names
+def _row_view(b: NeighborhoodBatch, rows: slice) -> NeighborhoodBatch:
+    """Rows ``rows`` of a bucket as a bucket of their own: views of its
+    arrays, no copy (real rows stay first)."""
+    start, stop = rows.indices(len(b))[:2]
+    return NeighborhoodBatch(
+        x=b.x[start:stop], z=b.z[start:stop], mask=b.mask[start:stop],
+        xstar=b.xstar[start:stop], cell_index=b.cell_index[start:stop],
+        n_valid_cells=max(0, min(b.n_valid_cells - start, stop - start)),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class _FitPlan:
+    """What the L-BFGS fit of a bucket decides on the whole bucket, before
+    its rows are split over shards (``parallel.mesh``), so that a row's fit
+    does not depend on the split: its start, the problem's size, whether
+    the inits chain the bucket and whether the cascade runs."""
+
+    h0: np.ndarray  # (B, 5) start log-hypers
+    cap: int  # neighbour slots of the fit (a prefix of each row)
+    chained: bool
+    use_cascade: bool
+    ws_n: int  # the cascade's first subsample
+    prefix: str  # of the stage names: "seed:" in the seed pass
+
+
+def _plan_fit(full_b: NeighborhoodBatch, x0: np.ndarray, init_at_cells: Optional[np.ndarray],
+              cfg: DailyConfig, opt_cfg: OptimizeConfig, dtype, seed_init: bool = False,
+              hypers_only: bool = False) -> _FitPlan:
+    """The whole-bucket decisions of the pass-1 fit (:class:`_FitPlan`).
+    Shuffles ``full_b``'s valid points in place where a subsample is taken:
+    one ``default_rng(0)`` in row order over the whole bucket."""
     # The optimization problem's size: capped to a uniform subsample in the
     # seed pass and by opt_n_max; prediction always uses the full row.
     cap = full_b.capacity
@@ -391,9 +420,7 @@ def _optimize_bucket(
         h0_all[warm] = np.log(np.maximum(vals[warm], 1e-300)).astype(dtype)
         # Inits that cover the bucket make the few cold cells (a newly active
         # ice edge) just take more fine iterations.
-        chained = warm.mean() > 0.5
-    # Restarts probe other basins from x0: pointless from a warm start.
-    fine_cfg = dataclasses.replace(opt_cfg, restarts=1) if chained else opt_cfg
+        chained = bool(warm.mean() > 0.5)
     # A day-chained init is THIS cell's optimum from an overlapping window,
     # and subsample stages would pull it away: no cascade. A spatial-seed
     # init is a NEARBY cell's optimum: cheap subsample stages adapt it to
@@ -404,21 +431,35 @@ def _optimize_bucket(
     # M slots) must be a uniform subsample.
     if cap < full_b.capacity or use_cascade or routed_nystroem_m(opt_cfg, cap):
         _permute_valid_points(full_b)
+    return _FitPlan(h0_all, cap, chained, use_cascade, ws_n, "seed:" if hypers_only else "")
 
-    # The bucket goes to the device once, centered, and stays there.
-    x_d, m_d = (torch.from_numpy(a).to(device) for a in (full_b.x, full_b.mask))
-    y_d = torch.from_numpy(full_b.z - prior_rows.astype(dtype)[:, None]).to(device)
-    h_d = torch.from_numpy(h0_all).to(device)
 
-    if use_cascade:
+def _fit_rows(b: NeighborhoodBatch, h0: np.ndarray, prior_rows: np.ndarray, plan: _FitPlan,
+              cfg: DailyConfig, opt_cfg: OptimizeConfig, dtype, device: torch.device,
+              stats: Optional[list]) -> np.ndarray:
+    """Pass-1 hyperparameter optimization of rows ``b`` of a bucket (all of
+    it, or a shard's rows) from ``h0``, as ``plan`` decided for the bucket:
+    the warm-start cascade (``DailyConfig.warmstart_n``) and the segmented,
+    compacted fine pass. Returns the (B, 5) optimized log-hypers on the
+    host."""
+    cap, prefix = plan.cap, plan.prefix
+    # Restarts probe other basins from x0: pointless from a warm start.
+    fine_cfg = dataclasses.replace(opt_cfg, restarts=1) if plan.chained else opt_cfg
+
+    # The rows go to the device once, centered, and stay there.
+    x_d, m_d = (torch.from_numpy(a).to(device) for a in (b.x, b.mask))
+    y_d = torch.from_numpy(b.z - prior_rows.astype(dtype)[:, None]).to(device)
+    h_d = torch.from_numpy(np.ascontiguousarray(h0)).to(device)
+
+    if plan.use_cascade:
         stage_ftol = max(opt_cfg.ftol_abs, cfg.warmstart_ftol)
         # Restarts run only in the cheapest first stage; later stages polish
         # the winner.
         stage_cfg = dataclasses.replace(
-            opt_cfg, ftol_abs=stage_ftol, restarts=1 if chained else opt_cfg.restarts
+            opt_cfg, ftol_abs=stage_ftol, restarts=1 if plan.chained else opt_cfg.restarts
         )
-        n_sub = ws_n
-        active = torch.ones(len(full_b), dtype=torch.bool, device=device)
+        n_sub = plan.ws_n
+        active = torch.ones(len(b), dtype=torch.bool, device=device)
         while n_sub < cap:
             rows = torch.nonzero(active)[:, 0]
             if rows.numel() == 0:  # every cell drained: no launch at all
@@ -426,7 +467,7 @@ def _optimize_bucket(
                 continue
             t_stage = time.perf_counter()
             sx, sy, sm = _prefix_subset(x_d, y_d, m_d, n_sub)
-            if rows.numel() < len(full_b):
+            if rows.numel() < len(b):
                 sx, sy, sm = (a.index_select(0, rows) for a in (sx, sy, sm))
             h_stage = h_d.index_select(0, rows)
             stage_backend = _resolve_backend(stage_cfg, n_sub)
@@ -450,37 +491,44 @@ def _optimize_bucket(
     t_opt = time.perf_counter()
     fx, fy, fm = _prefix_subset(x_d, y_d, m_d, cap)
     fine_backend = _resolve_backend(fine_cfg, cap)
-    chunk = _chunk_rows(cap, fine_cfg.restarts * len(full_b), cfg, dtype.itemsize, fine_backend)
+    chunk = _chunk_rows(cap, fine_cfg.restarts * len(b), cfg, dtype.itemsize, fine_backend)
     # Warm entries (chained, seeded or cascade output) start with the
     # zero-iteration verify sweep; from a cold x0 nothing is converged yet.
-    warm_entry = (chained or use_cascade) and cfg.fine_entry_drain
+    warm_entry = (plan.chained or plan.use_cascade) and cfg.fine_entry_drain
     opt_all = optimize_mll_chunked(
         h_d, fx, fy, fm, fine_cfg, chunk_rows=chunk, segment_iters=cfg.opt_segment_iters,
         lead_schedule=((0,) + _SEG_SCHEDULE) if warm_entry else None,
     )
     lh_all = opt_all.log_hypers.cpu().numpy()
-    _stage(stats, prefix + "opt", cap, len(full_b), t_opt, int(opt_all.iters.sum()),
+    _stage(stats, prefix + "opt", cap, len(b), t_opt, int(opt_all.iters.sum()),
            converged=int(opt_all.converged.sum()), **_objective(fine_backend))
     return lh_all
+
+
+def _shuffle_for_adam(full_b: NeighborhoodBatch, cfg: DailyConfig,
+                      opt_cfg: OptimizeConfig) -> None:
+    """The Adam fit's whole-bucket decision: shuffle the valid points (as
+    :func:`_plan_fit` does) where the L-BFGS fit would take a subsample
+    (``opt_n_max``) or the Nystrom objective's landmarks
+    (``daily.py:497-513``), so a row's points stand in the JAX package's
+    order."""
+    n = full_b.capacity
+    cap = min(n, cfg.opt_n_max) if cfg.opt_n_max else n
+    if cap < n or routed_nystroem_m(opt_cfg, cap):
+        _permute_valid_points(full_b)
 
 
 def _fit_adam(full_b: NeighborhoodBatch, x0: np.ndarray, prior_rows: np.ndarray,
               cfg: DailyConfig, opt_cfg: OptimizeConfig, dtype, device: torch.device,
               stats: Optional[list]) -> np.ndarray:
-    """The Adam fit of a bucket (``daily.py:903-927``): every row from x0 at
-    the bucket's full capacity, on the objective ``opt_cfg`` routes there,
-    in tiles of one size that the chunk model gives for that objective and
-    the restarts' rows. Returns the (B, 5) log-hypers on the host.
-
-    The valid points are shuffled first where the L-BFGS fit would take a
-    subsample (``opt_n_max``) or the Nystrom objective's landmarks
-    (``daily.py:497-513``), so a row's points stand in the JAX package's
-    order."""
+    """The Adam fit of rows ``full_b`` of a bucket (all of it, or a shard's
+    rows, after :func:`_shuffle_for_adam`; ``daily.py:903-927``): every row
+    from x0 at the bucket's full capacity, on the objective ``opt_cfg``
+    routes there, in tiles of one size that the chunk model gives for that
+    objective and the restarts' rows. Returns the (B, 5) log-hypers on the
+    host."""
     t0 = time.perf_counter()
     n = full_b.capacity
-    cap = min(n, cfg.opt_n_max) if cfg.opt_n_max else n
-    if cap < n or routed_nystroem_m(opt_cfg, cap):
-        _permute_valid_points(full_b)
     backend = _resolve_backend(opt_cfg, n)
     # a cell's restarts are rows of the same launch: bytes a cell = restarts x a row's
     tile = _chunk_rows(n, len(full_b), cfg, dtype.itemsize * opt_cfg.restarts, backend)
@@ -538,6 +586,7 @@ def interpolate_daily(
     init_hypers: Optional[dict] = None,
     stats: Optional[list] = None,
     device: Union[str, torch.device] = "cuda",
+    cell_sharding=None,
 ) -> DailyResult:
     """One daily interpolated field with uncertainty, on ``device``: the wave
     of one day (``pipeline.multiday.interpolate_days``).
@@ -560,11 +609,17 @@ def interpolate_daily(
       stats: optional list; one dict per stage is appended
         ({stage, n, cells, wall_s, iters_sum, ...}; stages ``seed:cascade``,
         ``seed:opt``, ``cascade``, ``opt``, ``predict``, ``smooth``,
-        ``pass2``).
+        ``pass2``). Under ``cell_sharding`` the shards' entries of a stage
+        are merged into one, with ``shards``.
+      cell_sharding: a ``parallel.mesh.CellSharding``: every bucket's rows
+        are split over its devices, one host thread a shard, and the
+        results gathered in row order; its devices replace ``device``. The
+        results are the unsharded run's.
 
     Each predict logs one INFO record with args ``(N, cells, tile rows,
-    seconds)`` per bucket; the seconds end with the bucket's last results on
-    the host. Each stage logs one INFO record ``stage {...}``.
+    seconds)`` per bucket (sharded: a tuple of each shard's tile rows); the
+    seconds end with the bucket's last results on the host. Each stage logs
+    one INFO record ``stage {...}``.
     """
     from optimalinterpolation_tpu_torch.pipeline.multiday import interpolate_days  # imports this
 
@@ -572,4 +627,5 @@ def interpolate_daily(
         ds, [day], [prior_mean], config,
         init_hypers=None if init_hypers is None else [init_hypers],
         precomputed_hypers=precomputed_hypers, stats=stats, device=device,
+        cell_sharding=cell_sharding,
     )[0]

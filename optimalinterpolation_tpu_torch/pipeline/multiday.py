@@ -18,11 +18,14 @@ for a subsample: one ``default_rng(0)`` permutation per row over the
 combined bucket, as the JAX package draws them. Day-to-day chaining composes
 with waves through strided membership (``pipeline.season``).
 
-The day's own helpers do the work (``pipeline.daily``: ``_optimize_bucket``,
-``_predict_bucket``, ``_smooth_fields``, ``_stage``); ``device`` takes the
-place of the JAX package's ``cell_sharding``. This is also the single day's
-flow: ``interpolate_daily`` is the wave of one day, whose combined buckets
-are the day's own.
+The day's own helpers do the work (``pipeline.daily``: ``_plan_fit``,
+``_fit_rows``, ``_fit_adam``, ``_predict_bucket``, ``_smooth_fields``,
+``_stage``), on ``device`` or, with ``cell_sharding``
+(``parallel.mesh.CellSharding``), on contiguous row ranges of each bucket,
+one host thread a device; the shards' results are gathered in row order and
+their stage entries merged (:func:`_merge_stages`). This is also the single
+day's flow: ``interpolate_daily`` is the wave of one day, whose combined
+buckets are the day's own.
 """
 
 from __future__ import annotations
@@ -46,11 +49,16 @@ from optimalinterpolation_tpu_torch.pipeline.daily import (
     DailyResult,
     _filled_init,
     _fit_adam,
+    _fit_rows,
     _log_rows,
-    _optimize_bucket,
+    _plan_fit,
     _predict_bucket,
     _prior_at_cells,
     _prior_rows,
+    _record,
+    _row_view,
+    _ShardStats,
+    _shuffle_for_adam,
     _smooth_fields,
     _stage,
     load_hypers,
@@ -169,26 +177,76 @@ def _scatter_global(field: str, ctxs, offsets, cell_idx, values) -> None:
         c.grids[field][c.active_ij[0][local[sel]], c.active_ij[1][local[sel]]] = vals[sel]
 
 
+def _on_shards(sharding, device, n_rows: int, batch_multiple: int, stats, fn) -> list:
+    """``fn(rows, device, stats)`` over a bucket's ``n_rows`` rows: once on
+    ``device`` where ``sharding`` is None, else once a shard through
+    ``sharding.map``, whose shards' stage entries are merged into
+    ``stats``. Returns the results in row order."""
+    if sharding is None:
+        return [fn(slice(0, n_rows), device, stats)]
+
+    def shard(rows, dev):
+        entries = _ShardStats()
+        return fn(rows, dev, entries), entries
+
+    out = sharding.map(n_rows, shard, batch_multiple)
+    _merge_stages(stats, [entries for _, entries in out])
+    return [result for result, _ in out]
+
+
+def _merge_stages(stats, shard_entries: list) -> None:
+    """One entry a bucket stage, as the JAX package gives it, from the
+    shards' entries of the stage (matched by stage and N): cells,
+    iterations and converged cells summed, the longest wall, and the number
+    of ``shards`` that ran it (a shard whose cascade drained has no entry
+    for the later stages). Cascade stages first, by N, then the rest."""
+    merged = {}
+    for entries in shard_entries:
+        for e in entries:
+            m = merged.get((e["stage"], e["n"]))
+            if m is None:
+                merged[(e["stage"], e["n"])] = {**e, "shards": 1}
+                continue
+            for key in ("cells", "iters_sum", "converged"):
+                if key in e:
+                    m[key] += e[key]
+            m["wall_s"] = max(m["wall_s"], e["wall_s"])
+            m["shards"] += 1
+    for e in sorted(merged.values(), key=lambda e: (not e["stage"].endswith("cascade"), e["n"])):
+        _record(stats, e)
+
+
 def _predict_into(fields, ctxs, offsets, full_b, lh_rows, prior_cells, prior_fill, cfg, dtype,
-                  device, stats, stage) -> None:
-    """Predict a combined bucket and scatter (mean, std[, lZ]) into
-    ``fields``; one INFO record ``(N, cells, tile rows, seconds)`` and one
-    stage entry."""
+                  device, sharding, stats, stage) -> None:
+    """Predict a combined bucket (over the shards of ``sharding``, where
+    given) and scatter (mean, std[, lZ]) into ``fields``; one INFO record
+    ``(N, cells, tile rows, seconds)`` and one stage entry."""
     t0 = time.perf_counter()
-    out, tile = _predict_bucket(full_b, lh_rows, prior_cells, prior_fill, cfg, dtype, device)
+    parts = _on_shards(
+        sharding, device, len(full_b), cfg.batch_multiple, None,
+        lambda rows, dev, _: _predict_bucket(_row_view(full_b, rows), lh_rows[rows],
+                                             prior_cells, prior_fill, cfg, dtype, dev),
+    )
+    out = np.concatenate([o for o, _ in parts], axis=1)
     for field, values in zip(fields, out):
         _scatter_global(field, ctxs, offsets, full_b.cell_index, values)
-    logger.info("bucket N=%d: %d cells in %d-row tiles, %.3f s",
-                full_b.capacity, full_b.n_valid_cells, tile, time.perf_counter() - t0)
-    _stage(stats, stage, full_b.capacity, len(full_b), t0)
+    secs = time.perf_counter() - t0
+    if sharding is None:
+        logger.info("bucket N=%d: %d cells in %d-row tiles, %.3f s",
+                    full_b.capacity, full_b.n_valid_cells, parts[0][1], secs)
+        _stage(stats, stage, full_b.capacity, len(full_b), t0)
+    else:
+        logger.info("bucket N=%d: %d cells in %s-row tiles (one a shard), %.3f s",
+                    full_b.capacity, full_b.n_valid_cells, tuple(t for _, t in parts), secs)
+        _stage(stats, stage, full_b.capacity, len(full_b), t0, shards=len(parts))
 
 
 def _pass1(ctxs: list, priors: Sequence, grid_res_m: float, cfg: DailyConfig, opt_cfg, dtype,
-           device, stats, init_fields: Optional[list], seed_init: bool,
+           device, sharding, stats, init_fields: Optional[list], seed_init: bool,
            hypers_only: bool) -> None:
     """Fit (and unless ``hypers_only``, predict) every capacity's combined
     bucket; scatters into the days' grids. Stage names carry ``seed:``
-    where ``hypers_only`` (``daily._optimize_bucket`` adds it)."""
+    where ``hypers_only`` (``daily._plan_fit`` adds it)."""
     offsets = _offsets(ctxs)
     prior_cells, prior_fill = _prior_global(ctxs, priors)
     x0 = exact_gp.HYPER_INIT_LOG(grid_res_m, dtype=torch.float64).numpy()
@@ -205,19 +263,29 @@ def _pass1(ctxs: list, priors: Sequence, grid_res_m: float, cfg: DailyConfig, op
     for capacity in sorted(per_cap):
         full_b, _ = _concat_buckets(per_cap[capacity], offsets, cfg.batch_multiple)
         prior_rows = _prior_rows(prior_cells, prior_fill, full_b.cell_index, dtype)
+        # Whole-bucket decisions (and the shuffle) first, then the rows.
         if opt_cfg.method == "adam":  # from x0 at full capacity
-            lh_all = _fit_adam(full_b, x0, prior_rows, cfg, opt_cfg, dtype, device, stats)
+            _shuffle_for_adam(full_b, cfg, opt_cfg)
+
+            def fit(rows, dev, entries):
+                return _fit_adam(_row_view(full_b, rows), x0, prior_rows[rows], cfg, opt_cfg,
+                                 dtype, dev, entries)
         else:
-            lh_all = _optimize_bucket(
-                full_b, x0, init_global, prior_rows, cfg, opt_cfg, dtype, device, stats,
-                seed_init=seed_init, hypers_only=hypers_only,
-            )
+            plan = _plan_fit(full_b, x0, init_global, cfg, opt_cfg, dtype,
+                             seed_init=seed_init, hypers_only=hypers_only)
+
+            def fit(rows, dev, entries):
+                return _fit_rows(_row_view(full_b, rows), plan.h0[rows], prior_rows[rows], plan,
+                                 cfg, opt_cfg, dtype, dev, entries)
+        lh_all = np.concatenate(
+            _on_shards(sharding, device, len(full_b), cfg.batch_multiple, stats, fit))
         hyp = np.exp(lh_all.astype(np.float64))
         for hi, name in enumerate(HYPER_NAMES):
             _scatter_global(name, ctxs, offsets, full_b.cell_index, hyp[:, hi])
         if not hypers_only:
             _predict_into(("interp", "interp_error", "lZ"), ctxs, offsets, full_b, lh_all,
-                          prior_cells, prior_fill, cfg, dtype, device, stats, "predict")
+                          prior_cells, prior_fill, cfg, dtype, device, sharding, stats,
+                          "predict")
 
 
 def interpolate_days(
@@ -229,9 +297,10 @@ def interpolate_days(
     precomputed_hypers: Optional[Union[str, dict]] = None,
     stats: Optional[list] = None,
     device: Union[str, torch.device] = "cuda",
+    cell_sharding=None,
 ) -> list[DailyResult]:
     """One WAVE: several days interpolated as one stacked cell batch, on
-    ``device``.
+    ``device`` or over the shards of ``cell_sharding``.
 
     Args:
       days: window START indices (the date of entry i is
@@ -248,6 +317,9 @@ def interpolate_days(
         combined predict.
       stats: optional list; one dict per stage, as ``interpolate_daily``
         appends them (a wave's stages cover all its days).
+      cell_sharding: a ``parallel.mesh.CellSharding``, as
+        ``interpolate_daily`` takes it: every combined bucket's rows split
+        over its devices, which replace ``device``.
 
     With ``config.opt.method == "adam"`` a wave holds one day (as in the
     JAX package; more raise ValueError), and the day's fit is
@@ -276,8 +348,8 @@ def interpolate_days(
             if field.shape != ds.sie.shape[:2]:
                 raise ValueError(f"{name} field shape {field.shape} != grid shape "
                                  f"{ds.sie.shape[:2]}")
-        return _pass2_assemble(cfg, ctxs, [hypers] * len(ctxs), priors, dtype, device, stats,
-                               quicklook=True)
+        return _pass2_assemble(cfg, ctxs, [hypers] * len(ctxs), priors, dtype, device,
+                               cell_sharding, stats, quicklook=True)
 
     init_fields = None
     if init_hypers is not None:
@@ -297,14 +369,14 @@ def interpolate_days(
             sie_seed[~keep] = np.nan
             cfg = dataclasses.replace(cfg, spatial_seed_stride=0)
             seed_ctxs = [_day_ctx(ds, d, cfg, dtype, sie_override=sie_seed) for d in days]
-            _pass1(seed_ctxs, priors, grid_res_m, cfg, opt_cfg, dtype, device, stats, None,
-                   seed_init=False, hypers_only=True)
+            _pass1(seed_ctxs, priors, grid_res_m, cfg, opt_cfg, dtype, device, cell_sharding,
+                   stats, None, seed_init=False, hypers_only=True)
             init_fields = [{n: nearest_fill(sc.grids[n], ds.x, ds.y) for n in HYPER_NAMES}
                            for sc in seed_ctxs]
             seed_init = True
 
-    _pass1(ctxs, priors, grid_res_m, cfg, opt_cfg, dtype, device, stats, init_fields,
-           seed_init=seed_init, hypers_only=False)
+    _pass1(ctxs, priors, grid_res_m, cfg, opt_cfg, dtype, device, cell_sharding, stats,
+           init_fields, seed_init=seed_init, hypers_only=False)
 
     # ---- per-day smoothing (float64, host) ---------------------------------
     t_smooth = time.perf_counter()
@@ -317,10 +389,11 @@ def interpolate_days(
     smth = [_smooth_fields(c.grids, vmaxes, c.sie_day, std) for c in ctxs]
     _stage(stats, "smooth", int(ds.sie.shape[0]), 5 * len(ctxs), t_smooth)
 
-    return _pass2_assemble(cfg, ctxs, smth, priors, dtype, device, stats, quicklook=False)
+    return _pass2_assemble(cfg, ctxs, smth, priors, dtype, device, cell_sharding, stats,
+                           quicklook=False)
 
 
-def _pass2_assemble(cfg: DailyConfig, ctxs, smth, priors, dtype, device, stats,
+def _pass2_assemble(cfg: DailyConfig, ctxs, smth, priors, dtype, device, sharding, stats,
                     quicklook: bool) -> list[DailyResult]:
     """Combined fixed-hyper predict over all days' buckets, then the
     results. ``quicklook``: no pass-1 grids exist, so the predictions double
@@ -337,7 +410,7 @@ def _pass2_assemble(cfg: DailyConfig, ctxs, smth, priors, dtype, device, stats,
         full_b, _ = _concat_buckets(per_cap[capacity], offsets, cfg.batch_multiple)
         _predict_into(fields, ctxs, offsets, full_b,
                       _log_rows(smth_at_cells, full_b.cell_index, dtype),
-                      prior_cells, prior_fill, cfg, dtype, device, stats, "pass2")
+                      prior_cells, prior_fill, cfg, dtype, device, sharding, stats, "pass2")
 
     return [
         DailyResult(

@@ -110,6 +110,7 @@ def run_season(
     precomputed_hypers: Optional[Union[str, dict]] = None,
     log: Callable[[str], None] = print,
     device: Union[str, torch.device] = "cuda",
+    cell_sharding=None,
 ) -> list[DailyResult]:
     """Run every T-day window (or the given ``days`` start indices) on
     ``device``, in strided waves of up to ``config.day_parallel`` days;
@@ -124,7 +125,9 @@ def run_season(
     Wave j holds list positions ``[j::n_waves]``, so the day at position p
     starts from position p - 1, fitted one wave earlier; resumed days still
     feed their pickled hypers into the chain. At ``day_parallel`` 1 every
-    wave is one day and the season runs day by day.
+    wave is one day and the season runs day by day. ``cell_sharding``
+    (``parallel.mesh.CellSharding``) splits every wave's buckets over its
+    devices, as ``interpolate_days`` takes it.
     """
     cfg = config
     all_windows = range(ds.n_days - cfg.daily.window_days + 1)
@@ -163,7 +166,7 @@ def run_season(
         res_list = interpolate_days(
             ds, [days[p] for p in run_pos], [_prior_for(days[p], prior_fn, fyi) for p in run_pos],
             cfg.daily, init_hypers=inits if any(i is not None for i in inits) else None,
-            precomputed_hypers=precomputed_hypers, device=device,
+            precomputed_hypers=precomputed_hypers, device=device, cell_sharding=cell_sharding,
         )
         wall = time.perf_counter() - t0
         n_cells = sum(int(np.isfinite(r.interp).sum()) for r in res_list)

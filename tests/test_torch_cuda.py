@@ -519,3 +519,44 @@ def test_cell_command_on_card(card, tmp_path):
     for name, line in lines.items():
         assert np.isfinite(line["mean"]) and line["std"] > 0, name
     assert abs(lines["nystroem"]["mean"] - lines["exact"]["mean"]) < 0.05, lines
+
+
+def test_sharded_day_on_card_matches_one_shard(card, tmp_path):
+    """tests/test_multiday.py's season and ``_CFG`` (buckets (128, 256), K2
+    and K3 only) in float32: window 0 on two shards of ``cuda:0``
+    (``make_mesh(devices=["cuda:0", "cuda:0"])``, two threads, two streams)
+    gives every one of the 15 fields bit for bit as the unsharded day: a
+    row's bits do not depend on the rows that share its launch. Each
+    shard's stream carries K2, K3 value and K3 gradient launches, and each
+    wrapper's launches by stream add up to its launches."""
+    import collections
+
+    from optimalinterpolation_tpu_torch.data.reader import read_freeboard_season
+    from optimalinterpolation_tpu_torch.data.synthetic import make_synthetic_season
+    from optimalinterpolation_tpu_torch.models.optimizer import OptimizeConfig
+    from optimalinterpolation_tpu_torch.parallel.mesh import cell_sharding, make_mesh
+    from optimalinterpolation_tpu_torch.pipeline.daily import DailyConfig, interpolate_daily
+
+    make_synthetic_season(str(tmp_path), grid_res_km=125, n_days=9, seed=5, noise_std=0.03,
+                          tracks_per_day=(5, 2, 4, 4))
+    ds = read_freeboard_season(str(tmp_path), 125, "2018-2019")
+    cfg = DailyConfig(window_days=9, radius_km=450.0, buckets=(128, 256), dtype="float32",
+                      opt=OptimizeConfig(max_iters=10, nystroem_min_n=0), warmstart_n=0,
+                      spatial_seed_stride=0)
+    one = interpolate_daily(ds, 0, 0.15, cfg, device=card).to_reference_dict()
+    sharding = cell_sharding(make_mesh(devices=["cuda:0", "cuda:0"]))
+    counted = (fused_gp.gp_predict, fused_gp.gp_nll, fused_gp.gp_nll_and_grad)
+    before = [(fn.launches, collections.Counter(fn.streams)) for fn in counted]
+    two = interpolate_daily(ds, 0, 0.15, cfg, cell_sharding=sharding).to_reference_dict()
+    torch.cuda.synchronize()
+    streams = [sharding.stream(i).cuda_stream for i in range(2)]
+    assert len(set(streams)) == 2
+    for fn, (n0, s0) in zip(counted, before):
+        by_stream = fn.streams - s0
+        assert sum(by_stream.values()) == fn.launches - n0 > 0
+        assert all(by_stream[s] > 0 for s in streams), (fn.__name__, by_stream)
+    assert list(two) == list(one) and len(two) == 15
+    interp = next(v for k, v in two.items() if k.endswith("_interp_smth"))
+    assert np.isfinite(interp).sum() > 100
+    for key in one:
+        np.testing.assert_array_equal(two[key], one[key], err_msg=key)

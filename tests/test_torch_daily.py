@@ -300,7 +300,7 @@ def test_port_never_imports_jax():
         "import chip_smoke\n"
         "need = [p.__name__ + '.' + m for m in ('pipeline.multiday', 'pipeline.season', "
         "'io.quicklook', 'data.projection', 'models.nystroem', 'models.svgp', 'models.bfgs', "
-        "'viz')]\n"
+        "'viz', 'parallel.mesh')]\n"
         "assert all(m in sys.modules for m in need), need\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'optimalinterpolation_tpu', 'h5py', 'matplotlib'))\n"

@@ -121,7 +121,7 @@ def main() -> int:
         from optimalinterpolation_tpu_torch.ops.kernels import Kernel
         from time_fused_kernels import _k3_args
 
-        lib = _cuda._library()
+        lib = _cuda.load()
         kw = dict(kind=Kernel.MATERN32, jitter=1e-6)
         rng = np.random.default_rng(0)
         report = {"card": smi}
