@@ -20,12 +20,12 @@ phase:
              3 not ok; kernel, float32-twin and library times at 1, 132, 352
              (a launch of the 2048 bucket) and 1,025 blocks, the kernel no
              slower than the library at 352 and 1,025.
-  4. K2      N = 512 and 1024, B = 64 (one cell with NaN hypers), against the
-             float64 twin: |d mean|, |d std| <= 1e-4 m (the whole-flow float32
-             tolerance of tests/test_reference_flow.py), lZ within 1e-4
-             relative, ok identical, the NaN cell NaN in both.
-  5. K3      value and gradient at N = 128 (all four kernel families), 512
-             and 1024, B = 132 (one cell per SM; masked rows, differing
+  4. K2      N = 128, 256, 512 and 1024, B = 64 (one cell with NaN hypers),
+             against the float64 twin: |d mean|, |d std| <= 1e-4 m (the
+             whole-flow float32 tolerance of tests/test_reference_flow.py), lZ
+             within 1e-4 relative, ok identical, the NaN cell NaN in both.
+  5. K3      value and gradient at N = 128 (all four kernel families), 256,
+             512 and 1024, B = 132 (one cell per SM; masked rows, differing
              hypers, one all-padding row, one NaN row) against the float64
              twin: value within 1e-5 relative, gradient within
              max(1e-3 |g|_inf, 4 x the float32 twin's own deviation); at
@@ -141,6 +141,38 @@ phase:
              through ``cli.main(["daily", ..., "--devices", N])`` over all
              N, with (a)'s gates; on one card ``"multi_card": "not run: 1
              card"``.
+ 14. knobs   the fit phase's day through the same ``cli.main(["daily", ...])``
+             call with the environment knobs ``OI_BUCKET_128=1
+             OI_BUCKET_256=1 OI_CASCADE_NYS_M=256`` set after import (and
+             unset after): six buckets, so K2 and K3 run at N = 128 and 256
+             inside the pipeline, and the cascade stages at n = 512 launch on
+             the rank-256 Nystrom objective (K1) while every fine stage stays
+             on K3. The fit phase's gates (15 keys, every active cell finite,
+             64 cells of each of the six buckets within 1e-4 m of the float64
+             twin, the optimum gates), plus: each cascade stage at n = 512
+             Nystrom rank 256 with K1 launched inside it, every fine stage
+             K3, K2 and K3 launched at N = 128 and 256 (launches by stage).
+             Cells by bucket, walls, K3 rows a launch, host syncs, peak
+             memory, rmse vs the truth beside the fit phase's (recorded, not
+             gated). The fit phase, run first with no knob set, is the check
+             that unset knobs change nothing.
+ 15. northstar  ``bench.py``'s calibration day, rebuilt with the port's own
+             modules (``tools/north_star.py``): its 16-day synthetic season,
+             day 0, the cells that ``default_rng(1).random(...) > 0.12``
+             leaves active (2,086 exactly),
+             its ``DailyConfig`` (50 iterations, grad_tol and ftol 1e-3,
+             jitter 1e-6), prior 0.15 and its score (rmse of the finite
+             ``interp_smth`` cells against the FYI file + 0.02 m), through
+             ``interpolate_daily`` under the JAX package's routing
+             (``OI_BLOCKED_MIN_N=512 OI_NYSTROEM_MIN_N=1024``: the 512 bucket
+             blocked on K1, N = 1024 Nystrom rank 512 on K1) and the port's.
+             Gates: 15 keys, every active cell finite, the JAX routing's
+             stages on their objectives, and rmse against the JAX package's
+             recorded 0.0120 m (DESIGN.md, round-5 table): within 0.55 mm
+             under the JAX routing (0.5 mm plus the recorded value's
+             rounding), at most 0.0120 + 0.00055 m under the port's.
+             ``tools/north_star_day.py`` runs the full-scale day (17,149
+             cells, 0.0116 m) with the same gates.
 
 The fit phase's day must also give an earlier run's launches and rmse to
 the bit (``EARLIER_FIT``): the gather's arrays do not depend on how it
@@ -166,6 +198,8 @@ import time
 
 import numpy as np
 import torch
+
+from tools import north_star
 
 
 def _fail(msg: str):
@@ -434,8 +468,8 @@ def phase_k2() -> dict:
     from optimalinterpolation_tpu_torch.ops import fused_gp
 
     rng = np.random.default_rng(1)
-    report = {"max_abs_err": 0.0}
-    for n in (512, 1024):
+    report = {"max_abs_err": 0.0, "by_n": {}}
+    for n in (128, 256, 512, 1024):
         args = _k2_problem(rng, 64, n)
         r = fused_gp.gp_predict(*args, jitter=1e-6)
         torch.cuda.synchronize()
@@ -452,15 +486,20 @@ def phase_k2() -> dict:
         tm, ts, tl = _deviation(twin32, ref)
         if not (dm <= 1e-4 and ds <= 1e-4 and dl <= 1e-4):
             _fail(f"K2 N={n}: |d mean| {dm}, |d std| {ds}, rel d lZ {dl} vs the float64 twin")
-        ms = _ms(lambda: fused_gp.gp_predict(*args, jitter=1e-6), 10)
-        plain_ms = _ms(lambda: fused_gp.gp_predict_plain(*args, jitter=1e-6), 10)
+        reps = 40 if n < 512 else 10
+        ms = _ms(lambda: fused_gp.gp_predict(*args, jitter=1e-6), reps)
+        plain_ms = _ms(lambda: fused_gp.gp_predict_plain(*args, jitter=1e-6), reps)
+        # inputs and the (B, 5) output against N^3 / 3 FLOP of Cholesky per cell
+        bound = _bound(64 * (5 * n + 14) * 4, 64 * n ** 3 / 3, tf32x3=True)
         _phase("K2", n=n, cells=64, d_mean=dm, d_std=ds, d_lz_rel=dl,
-               twin32_d_mean=tm, twin32_d_std=ts, twin32_d_lz_rel=tl, ms=ms, plain_ms=plain_ms)
+               twin32_d_mean=tm, twin32_d_std=ts, twin32_d_lz_rel=tl, ms=ms, plain_ms=plain_ms,
+               **bound)
         report["max_abs_err"] = max(report["max_abs_err"], dm, ds)
-        # the N = 1024 times are kept; inputs and the (B, 5) output against
-        # N^3 / 3 FLOP of Cholesky per cell
+        report["by_n"][str(n)] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max(dm, ds),
+                                  **bound}
+        # the N = 1024 times are kept at the top
         report.update(shape=f"N={n}, 64 cells", ms=ms, plain_ms=plain_ms, library_ms=None,
-                      **_bound(64 * (5 * n + 14) * 4, 64 * n ** 3 / 3, tf32x3=True))
+                      **bound)
     return report
 
 
@@ -488,8 +527,8 @@ def phase_k3() -> dict:
 
     rng = np.random.default_rng(2)
     b = 132
-    report = {}
-    cases = [(128, k) for k in Kernel] + [(512, Kernel.MATERN32), (1024, Kernel.MATERN32)]
+    report, by_n = {}, {}
+    cases = [(128, k) for k in Kernel] + [(n, Kernel.MATERN32) for n in (256, 512, 1024)]
     for n, kind in cases:
         args = _k3_problem(rng, b, n)
         kw = dict(kind=kind, jitter=1e-6)
@@ -529,16 +568,24 @@ def phase_k3() -> dict:
                 plain_value_ms=_ms(lambda: fused_gp.gp_nll_plain(*args, **kw), reps),
                 plain_ms=_ms(lambda: fused_gp.gp_nll_and_grad_plain(*args, **kw), reps),
             )
-            # the N = 1024 gradient launch is kept: inputs and the (B, 6)
-            # output against N^3 FLOP per cell (Cholesky, L^-T and the lower
-            # triangle of L^-T L^-1, N^3 / 3 each)
+            # inputs and the (B, 6) output against N^3 FLOP per cell (Cholesky,
+            # L^-T and the lower triangle of L^-T L^-1, N^3 / 3 each); the
+            # value alone N^3 / 3
+            bound = _bound(b * (5 * n + 11) * 4, b * float(n) ** 3, tf32x3=True)
+            value_bound = _bound(b * (5 * n + 6) * 4, b * float(n) ** 3 / 3, tf32x3=True)
+            line.update(**bound, value_bound_ms=value_bound["bound_ms"])
+            by_n[str(n)] = {k: line[k] for k in ("kind", "ms", "value_ms", "plain_ms",
+                                                 "plain_value_ms", "bound_ms", "bound_by",
+                                                 "bound_simt_ms", "value_bound_ms")}
+            by_n[str(n)]["max_abs_err"] = dg
+            # the N = 1024 gradient launch is kept at the top
             report = dict(shape=f"N={n}, {b} cells, value + gradient", max_abs_err=dg,
                           value_rel_err=dv, ms=line["ms"], plain_ms=line["plain_ms"],
-                          value_ms=line["value_ms"], library_ms=None,
-                          **_bound(b * (5 * n + 11) * 4, b * float(n) ** 3, tf32x3=True))
+                          value_ms=line["value_ms"], library_ms=None, **bound)
         if n == 1024:
             report["value_ms_by_rows"] = _k3_few_rows(args, kw, value, line["value_ms"])
         _phase("K3", **line)
+    report["by_n"] = by_n
     return report
 
 
@@ -568,9 +615,25 @@ class _DailyLog(logging.Handler):
         super().__init__(logging.INFO)
         self.buckets = []
         self.stages = []
+        self.counts = []  # the launch counts when each stage's record came
 
     def emit(self, record):
-        (self.stages if isinstance(record.args, dict) else self.buckets).append(record.args)
+        if isinstance(record.args, dict):
+            self.stages.append(record.args)
+            self.counts.append(_counts())
+        else:
+            self.buckets.append(record.args)
+
+    def stage_launches(self) -> list:
+        """Each stage's kernel launches: the counts at its record minus those
+        at the record before (the first against 0, as ``_run_daily`` zeroes
+        them). Exact for an unsharded day, whose stages run one by one."""
+        prev = dict.fromkeys(KERNEL_NAMES, 0)
+        out = []
+        for c in self.counts:
+            out.append({k: c[k] - prev[k] for k in KERNEL_NAMES})
+            prev = c
+        return out
 
 
 RES_KM, N_DAYS, DAY, PRIOR = 25, 9, 0, 0.15
@@ -739,7 +802,7 @@ def _check_optimum(day: _Day, res, date, fit_batches=None) -> dict:
       autograd objective: NLL at K3's end minus NLL at the twin's end. Both
       are limited by float32 in the same way, so this isolates the kernel.
     * ``vs_cold_f64``: the NLL at the fitted hypers minus what a float64 fit
-      reaches from the cold x0 (16 cells), to show the basin.
+      reaches from the cold x0 (up to 16 cells), to show the basin.
 
     Gates, fixed before the final run. A float32 L-BFGS cannot be held to
     0.05 nats in every cell: the float32 NLL of ~1,000 points carries ~1e-3
@@ -794,7 +857,7 @@ def _check_optimum(day: _Day, res, date, fit_batches=None) -> dict:
         k3_fit = optimize_mll_chunked(cold32, *data32, OptimizeConfig(**kw), chunk_rows=64)
         twin_fit = optimize_mll_chunked(cold32, *data32, OptimizeConfig(backend="xla", **kw),
                                         chunk_rows=64)
-        nc = 16  # the cold float64 fit takes a cell through ~50 iterations
+        nc = min(16, len(rows))  # the cold float64 fit takes a cell through ~50 iterations
         cold64 = optimize_mll_chunked(x0.expand(nc, 5).contiguous(),
                                       *(a[:nc] for a in data64), f64_cfg, chunk_rows=64)
         out[b.capacity] = {
@@ -1107,8 +1170,8 @@ def _objective_ab(day) -> dict:
     |d std|; rmse of the predictions vs the truth."""
     from optimalinterpolation_tpu_torch.models import exact_gp
     from optimalinterpolation_tpu_torch.models.optimizer import (
-        _SEG_SCHEDULE,
         OptimizeConfig,
+        _seg_schedule,
         optimize_mll_chunked,
     )
     from optimalinterpolation_tpu_torch.ops import fused_gp
@@ -1157,7 +1220,7 @@ def _objective_ab(day) -> dict:
             t0 = time.perf_counter()
             res = optimize_mll_chunked(warm.log_hypers, x, y, m, ocfg, chunk_rows=chunk,
                                        segment_iters=cfg.opt_segment_iters,
-                                       lead_schedule=(0,) + _SEG_SCHEDULE)
+                                       lead_schedule=(0,) + _seg_schedule())
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         k1 = _k_launches()
@@ -2247,6 +2310,104 @@ def phase_devices(tmp: str, day: _Day, quick: dict, fit: dict) -> dict:
     return out["two_shards"]
 
 
+# ---------------------------------------------------------------------------
+# knobs: the JAX package's environment knobs on the fit phase's day
+# ---------------------------------------------------------------------------
+
+KNOBS = {"OI_BUCKET_128": "1", "OI_BUCKET_256": "1", "OI_CASCADE_NYS_M": "256"}
+KNOB_NYS_M = int(KNOBS["OI_CASCADE_NYS_M"])
+
+
+def phase_knobs(tmp: str, fit: dict) -> dict:
+    """The fit phase's day with ``KNOBS`` set (module docstring, phase 14)."""
+    from optimalinterpolation_tpu_torch.data.neighbors import DEFAULT_BUCKETS
+    from optimalinterpolation_tpu_torch.pipeline.daily import DailyConfig
+
+    with north_star.environ(KNOBS):
+        kday = _Day(tmp)  # gathered into the six buckets the knobs give
+        torch.cuda.reset_peak_memory_stats()
+        res, date, launches, syncs, day_s, handler = _run_daily(tmp, [])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        rows_hist = _rows_histogram()
+    if any(k in os.environ for k in KNOBS) or tuple(DailyConfig().buckets) != DEFAULT_BUCKETS:
+        _fail("the knobs outlived the phase")
+    stages = _stage_entries(handler.stages)
+    for e, n in zip(stages, handler.stage_launches()):
+        e["launches"] = n
+    fit_s, predict_s = _fit_predict_walls(stages)
+    n_active = int(kday.active.sum())
+    rmse = kday.rmse(res[f"{date}_interp_smth"])
+    buckets = {str(n): {"cells": cells, "tile": tile, "predict_wall_s": wall}
+               for n, cells, tile, wall in handler.buckets[:len(kday.batches)]}
+    _phase("knobs", knobs=KNOBS, date=date, active_cells=n_active, cells_by_bucket=buckets,
+           day_wall_s=day_s, cells_per_s_day=n_active / day_s, fit_wall_s=fit_s,
+           predict_wall_s=predict_s, host_syncs=syncs, launches=launches,
+           rmse_vs_truth_m=rmse, fit_phase_rmse_vs_truth_m=fit["rmse_vs_truth_m"],
+           fit_phase_day_wall_s=fit["day_wall_s"], peak_mem_gb=peak, stages=stages,
+           k3_value_rows=rows_hist)
+
+    caps = sorted(b.capacity for b in kday.batches)
+    if caps != [128, 256, 512, 1024, 2048, 4096]:
+        _fail(f"the knobs' day has buckets {caps}, not six")
+    kday.check_finite(res, date, [k[len(date) + 1:] for k in res])
+    cascades = [e for e in stages if e["stage"].endswith("cascade") and e["n"] >= 2 * KNOB_NYS_M]
+    if not cascades or any((e["backend"], e.get("m")) != ("nystroem", KNOB_NYS_M)
+                           for e in cascades):
+        _fail(f"cascade stages not on Nystrom rank {KNOB_NYS_M}: {cascades}")
+    if not all(e["launches"]["K1"] > 0 for e in cascades):
+        _fail(f"K1 not launched inside every Nystrom cascade stage: {cascades}")
+    fine = [e for e in stages if e["stage"].endswith("opt")]
+    if any(e["backend"] != "fused" for e in fine):
+        _fail(f"a fine stage left K3: {fine}")
+    for n in (128, 256):
+        k3 = sum(e["launches"]["K3 value"] + e["launches"]["K3 grad"] for e in fine
+                 if e["n"] == n)
+        k2 = sum(e["launches"]["K2"] for e in stages
+                 if e["stage"] in ("predict", "pass2") and e["n"] == n)
+        if not (k3 > 0 and k2 > 0):
+            _fail(f"N = {n}: K3 {k3} and K2 {k2} launches in the knobs' day")
+    check = kday.check_predict(res, date, "_smth")
+    optimum = _check_optimum(kday, res, date)
+    _phase("knobs_check",
+           pass2_vs_f64={str(n): {"cells": c, "d_mean": dm, "d_std": ds_}
+                         for n, (c, dm, ds_) in check.items()},
+           optimum_vs_f64={str(n): v for n, v in optimum.items()})
+    _gate_optimum(optimum, date)
+    return {**launches, "rmse_vs_truth_m": rmse, "day_wall_s": day_s}
+
+
+# ---------------------------------------------------------------------------
+# northstar: bench.py's day (tools/north_star.py)
+# ---------------------------------------------------------------------------
+
+def north_star_day(ds, fyi, which: str, routing: str) -> dict:
+    """``tools/north_star.py``'s day ``which`` under ``routing``, with every
+    launch count at 0 before and read after; its gates (module docstring,
+    phase 15)."""
+    from optimalinterpolation_tpu_torch.models import optimizer
+
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out, stats = north_star.run_day(ds, fyi, which, routing)
+    fit_s, predict_s = _fit_predict_walls(stats)
+    out.update(fit_wall_s=fit_s, predict_wall_s=predict_s, launches=_counts(),
+               host_syncs=optimizer._lbfgs_segment.host_syncs,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    _phase("northstar", **out)
+    for msg in north_star.failures(out):
+        _fail(msg)
+    return out
+
+
+def phase_northstar() -> dict:
+    """The calibration day under both routings (module docstring, phase
+    15). Returns the launches of each routing's day."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ds, fyi = north_star.bench_season(tmp)
+        return {routing: north_star_day(ds, fyi, "calibration", routing)["launches"]
+                for routing in north_star.ROUTINGS}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False")
@@ -2272,6 +2433,7 @@ def main() -> int:
         k3 = timed("k3", phase_k3)
         quick = timed("slice", phase_slice, tmp, day)
         fit = timed("fit", phase_fit, tmp, day)
+        knobs = timed("knobs", phase_knobs, tmp, fit)
         objectives = timed("objectives", phase_objectives, day)
         cell = timed("cell", phase_cell, tmp, day)
         adam = timed("adam", phase_adam, tmp, fit)
@@ -2279,6 +2441,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         season = timed("season", phase_season, fit, tmp)
         chain = timed("chain", phase_chain, tmp, season)
+    northstar = timed("northstar", phase_northstar)
     _phase("seconds", **seconds)
 
     def paths(name):
@@ -2286,7 +2449,8 @@ def main() -> int:
             "quicklook": quick[name], "fit": fit[name],
             "season": {wave: season[wave][name] for wave in ("cold", "chained")},
             "chain": chain[name], "cell": cell[name], "adam": adam[name],
-            "devices (two shards)": devices[name]}}
+            "devices (two shards)": devices[name], "knobs": knobs[name],
+            **{f"northstar ({r} routing)": northstar[r][name] for r in north_star.ROUTINGS}}}
 
     k1_paths = paths("K1")
     k1_paths["launches_by_path"].update(objectives)
@@ -2296,12 +2460,14 @@ def main() -> int:
          "source": "optimalinterpolation_tpu_torch/csrc/k1_factor_invert.cu",
          "replaces": "optimalinterpolation_tpu/ops/blocked_gp.py:80", **k1_paths,
          "launched_by": ["blocked predict (quicklook, fit, season waves, chain, Adam day)",
-                         "blocked objective",
-                         "Nystrom chol_inv (cell at N = 4096, Adam day at 2048 / 4096)"], **k1},
+                         "blocked objective (north star, JAX routing, N = 512)",
+                         "Nystrom chol_inv (cell at N = 4096, Adam day at 2048 / 4096, "
+                         "knobs' cascade at n = 512, north star's JAX routing at 1024)"], **k1},
         {"name": "K2 fused predict", "route": "cuda",
          "source": "optimalinterpolation_tpu_torch/csrc/k2_predict.cu",
          "replaces": "optimalinterpolation_tpu/ops/pallas_gp.py:795", **paths("K2"),
-         "launched_by": ["fused predict (quicklook, fit, chain, Adam day)", waves], **k2},
+         "launched_by": ["fused predict (quicklook, fit, chain, Adam day; knobs at N = 128 / "
+                         "256)", waves], **k2},
         {"name": "K3 fused NLL + gradient", "route": "cuda",
          "source": "optimalinterpolation_tpu_torch/csrc/k3_nll_grad.cu",
          "replaces": "optimalinterpolation_tpu/ops/pallas_gp.py:501",
@@ -2316,8 +2482,12 @@ def main() -> int:
                               "cell": {"value": cell["K3 value"], "grad": cell["K3 grad"]},
                               "adam": {"value": adam["K3 value"], "grad": adam["K3 grad"]},
                               "devices (two shards)": {"value": devices["K3 value"],
-                                                       "grad": devices["K3 grad"]}},
-         "launched_by": ["fit (seed pass, cascade, fine stage)", waves,
+                                                       "grad": devices["K3 grad"]},
+                              "knobs": {"value": knobs["K3 value"], "grad": knobs["K3 grad"]},
+                              **{f"northstar ({r} routing)": {"value": northstar[r]["K3 value"],
+                                                              "grad": northstar[r]["K3 grad"]}
+                                 for r in north_star.ROUTINGS}},
+         "launched_by": ["fit (seed pass, cascade, fine stage; knobs at N = 128 / 256)", waves,
                          "cell (exact, L-BFGS and Adam, N <= 1024)",
                          "Adam day (every step at N <= 1024)"], **k3},
     ]

@@ -20,7 +20,8 @@ against.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, Sequence
+import os
+from typing import Iterable, Optional, Sequence
 
 import numpy as np
 from scipy.spatial import cKDTree
@@ -32,12 +33,24 @@ __all__ = [
     "NeighborhoodBatch",
     "gather_neighborhoods",
     "bucketize_counts",
+    "default_buckets",
     "DEFAULT_BUCKETS",
 ]
 
 # The production bucket menu (optimalinterpolation_tpu/data/neighbors.py:57):
 # cells with <= 512 neighbors fold into the 512 bucket.
 DEFAULT_BUCKETS = (512, 1024, 2048, 4096)
+
+
+def default_buckets() -> tuple:
+    """The production bucket menu, with 128 and 256 buckets in front where
+    ``OI_BUCKET_128`` / ``OI_BUCKET_256`` are set (to anything non-empty):
+    thin cells then run at N = 128 / 256 instead of padding to 512
+    (``neighbors.py:60-68``). Read at every call, so a knob set after import
+    takes effect."""
+    return (((128,) if os.environ.get("OI_BUCKET_128") else ())
+            + ((256,) if os.environ.get("OI_BUCKET_256") else ())
+            + DEFAULT_BUCKETS)
 
 
 @dataclasses.dataclass
@@ -90,18 +103,21 @@ def gather_neighborhoods(
     cells_xy: np.ndarray,  # (M, 2) active-cell coordinates
     t_star: float,  # prediction day within the window (T_mid)
     radius_m: float,
-    buckets: Iterable[int] = DEFAULT_BUCKETS,
+    buckets: Optional[Iterable[int]] = None,
     batch_multiple: int = 8,
     dtype=np.float32,
 ) -> list[NeighborhoodBatch]:
     """Bucketed padded neighborhoods for every active cell.
 
     Cells with more neighbors than the largest bucket keep their *nearest*
-    ``max(buckets)`` points. ``batch_multiple`` pads each bucket's cell
-    count; padding rows have ``mask == 0`` and ``cell_index == -1`` and are
-    dropped at scatter time. Each row holds its points in ascending index
-    order of ``train`` (an oversize row: nearest first).
+    ``max(buckets)`` points. ``buckets`` None is :func:`default_buckets` at
+    this call. ``batch_multiple`` pads each bucket's cell count; padding
+    rows have ``mask == 0`` and ``cell_index == -1`` and are dropped at
+    scatter time. Each row holds its points in ascending index order of
+    ``train`` (an oversize row: nearest first).
     """
+    if buckets is None:
+        buckets = default_buckets()
     buckets = sorted(set(int(b) for b in buckets))
     offsets, flat = native.radius_neighbors(train.xy, cells_xy, radius_m)
     counts = np.diff(offsets)
@@ -167,12 +183,14 @@ def _gather_plain(
     cells_xy: np.ndarray,
     t_star: float,
     radius_m: float,
-    buckets: Iterable[int] = DEFAULT_BUCKETS,
+    buckets: Optional[Iterable[int]] = None,
     batch_multiple: int = 8,
     dtype=np.float32,
 ) -> list[NeighborhoodBatch]:
     """Plain version of ``gather_neighborhoods``: the kd-tree lists filled
     into buckets cell by cell, as the JAX package's gather fills them."""
+    if buckets is None:
+        buckets = default_buckets()
     buckets = sorted(set(int(b) for b in buckets))
     neighbor_lists = _neighbor_lists_kdtree(train, cells_xy, radius_m)
     counts = np.fromiter(

@@ -140,10 +140,15 @@ _LS_C1 = 1e-4
 # Largest first trial step in log-hyperparameter space: uncapped full L-BFGS
 # steps can jump into the degenerate noise-only basin (sf2 -> 0).
 _MAX_STEP = 1.0
-# Leading segment lengths of optimize_mll_chunked's sweeps: warm-started
-# stages mostly need 0-4 iterations a cell, with a long tail of stragglers
-# that would carry a whole chunk through a full-length first segment.
-_SEG_SCHEDULE = (1, 4)
+
+
+def _seg_schedule() -> tuple:
+    """Leading segment lengths of optimize_mll_chunked's sweeps: warm-started
+    stages mostly need 0-4 iterations a cell, with a long tail of stragglers
+    that would carry a whole chunk through a full-length first segment.
+    ``OI_SEG_SCHEDULE="a,b,..."`` replaces the default ``"1,4"``; read at
+    every call (``optimizer.py:744-747``)."""
+    return tuple(int(x) for x in os.environ.get("OI_SEG_SCHEDULE", "1,4").split(",") if x)
 
 
 def blocked_min_n() -> int:
@@ -624,10 +629,11 @@ def optimize_mll_chunked(
     per-cell work instead of chunks x the slowest cell's.
 
     ``lead_schedule`` gives the lengths of the leading sweeps (default
-    ``_SEG_SCHEDULE``). A leading 0 is a verify-and-drain sweep: the initial
-    NLL and gradient with no iteration, so that cells converged at their
-    warm start leave before any line search; the next sweep resumes from
-    that state, so the survivors' evaluations are unchanged.
+    :func:`_seg_schedule` at this call). A leading 0 is a verify-and-drain
+    sweep: the initial NLL and gradient with no iteration, so that cells
+    converged at their warm start leave before any line search; the next
+    sweep resumes from that state, so the survivors' evaluations are
+    unchanged.
 
     The inputs, the whole bucket's L-BFGS state and the result stay on the
     device of ``x``; a chunk is a gather (``index_select``) of its rows. Per
@@ -642,7 +648,7 @@ def optimize_mll_chunked(
     h0 = _expand_restarts(log_hypers0, r)
     b_tot = r * b
     knobs = _Knobs.of(config)
-    schedule = _SEG_SCHEDULE if lead_schedule is None else lead_schedule
+    schedule = _seg_schedule() if lead_schedule is None else lead_schedule
     chunk_rows = max(1, int(chunk_rows))
 
     def fns(rows):

@@ -40,23 +40,21 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from optimalinterpolation_tpu_torch.data.neighbors import (
-    DEFAULT_BUCKETS,
-    NeighborhoodBatch,
-)
+from optimalinterpolation_tpu_torch.data.neighbors import NeighborhoodBatch, default_buckets
 from optimalinterpolation_tpu_torch.data.reader import ObsDataset
 from optimalinterpolation_tpu_torch.data.regrid import nearest_fill
 from optimalinterpolation_tpu_torch.models.exact_gp_batch import predict_batch
 from optimalinterpolation_tpu_torch.models.optimizer import (
-    _SEG_SCHEDULE,
     OptimizeConfig,
     _resolve_backend,
+    _seg_schedule,
     optimize_mll_batch,
     optimize_mll_chunked,
     routed_nystroem_m,
@@ -104,13 +102,16 @@ _AUTOGRAD_BUFFERS = 10
 class DailyConfig:
     """Production knobs (the reference hardcodes them as module globals,
     ``GPR_CS2S3.py:201-217``); defaults as in the JAX package's
-    ``DailyConfig``, whose comments give the reason for each."""
+    ``DailyConfig``, whose comments give the reason for each. The defaults
+    of ``buckets``, ``opt_n_max`` and ``cascade_skip_tol`` read their
+    environment knobs when a config is built, never at import."""
 
     window_days: int = 9  # T
     radius_km: float = 300.0
     kind: Kernel = Kernel.MATERN32
     opt: OptimizeConfig = OptimizeConfig()
-    buckets: Sequence[int] = DEFAULT_BUCKETS
+    # OI_BUCKET_128 / OI_BUCKET_256 add the small buckets (default_buckets)
+    buckets: Sequence[int] = dataclasses.field(default_factory=default_buckets)
     batch_multiple: int = 8
     dtype: str = "float32"
     jitter: float = 0.0
@@ -130,7 +131,9 @@ class DailyConfig:
     # Cap on the optimization problem of every bucket: hyperparameters are
     # estimated from a uniform opt_n_max-point subsample of each neighborhood
     # (prediction always uses the full neighborhood). 0 = off.
-    opt_n_max: int = 1024
+    # OI_OPT_N_MAX replaces the default.
+    opt_n_max: int = dataclasses.field(
+        default_factory=lambda: int(os.environ.get("OI_OPT_N_MAX", "1024")))
     # Spatial seeding: cold-optimize every stride-th grid cell, nearest-fill
     # their hypers over the grid, then optimize all cells from those. Skipped
     # when init_hypers are given. 0 or 1 disables.
@@ -140,7 +143,9 @@ class DailyConfig:
     warmstart_ftol: float = 0.1
     # A cell whose log-hypers moved less than this (inf-norm) during a
     # cascade stage skips the remaining cascade stages. 0 disables.
-    cascade_skip_tol: float = 0.05
+    # OI_CASCADE_SKIP_TOL replaces the default.
+    cascade_skip_tol: float = dataclasses.field(
+        default_factory=lambda: float(os.environ.get("OI_CASCADE_SKIP_TOL", "0.05")))
     # A warm-started fine pass begins with a zero-iteration sweep (initial
     # NLL and gradient only), so cells converged at their start leave before
     # any line search.
@@ -247,6 +252,13 @@ def _prior_rows(prior_cells, fill, cell_index, dtype):
     real = cell_index >= 0
     rows[real] = prior_cells[cell_index[real]].astype(dtype)
     return rows
+
+
+def _cascade_nys_m() -> int:
+    """``OI_CASCADE_NYS_M``: the rank M of a Nystrom objective that cascade
+    stages below the Nystrom threshold launch on, 0 (the default) for none
+    (``daily.py:312-317``). Read at every call."""
+    return int(os.environ.get("OI_CASCADE_NYS_M", "0"))
 
 
 def _chunk_rows(capacity: int, n_rows: int, cfg: DailyConfig, itemsize: int,
@@ -459,6 +471,7 @@ def _fit_rows(b: NeighborhoodBatch, h0: np.ndarray, prior_rows: np.ndarray, plan
             opt_cfg, ftol_abs=stage_ftol, restarts=1 if plan.chained else opt_cfg.restarts
         )
         n_sub = plan.ws_n
+        nys_m = _cascade_nys_m()
         active = torch.ones(len(b), dtype=torch.bool, device=device)
         while n_sub < cap:
             rows = torch.nonzero(active)[:, 0]
@@ -470,11 +483,19 @@ def _fit_rows(b: NeighborhoodBatch, h0: np.ndarray, prior_rows: np.ndarray, plan
             if rows.numel() < len(b):
                 sx, sy, sm = (a.index_select(0, rows) for a in (sx, sy, sm))
             h_stage = h_d.index_select(0, rows)
-            stage_backend = _resolve_backend(stage_cfg, n_sub)
-            wchunk = _chunk_rows(n_sub, stage_cfg.restarts * rows.numel(), cfg,
+            # OI_CASCADE_NYS_M (daily.py:593-616): a stage that production
+            # routing keeps exact launches on a rank-M Nystrom objective;
+            # stage_cfg, and the fine stage derived from it, keep their
+            # routing.
+            launch_cfg = stage_cfg
+            if nys_m and n_sub >= 2 * nys_m and not routed_nystroem_m(stage_cfg, n_sub):
+                launch_cfg = dataclasses.replace(stage_cfg, nystroem_min_n=n_sub,
+                                                 nystroem_m=nys_m)
+            stage_backend = _resolve_backend(launch_cfg, n_sub)
+            wchunk = _chunk_rows(n_sub, launch_cfg.restarts * rows.numel(), cfg,
                                  dtype.itemsize, stage_backend)
             pre = optimize_mll_chunked(
-                h_stage, sx, sy, sm, stage_cfg, chunk_rows=wchunk,
+                h_stage, sx, sy, sm, launch_cfg, chunk_rows=wchunk,
                 segment_iters=cfg.opt_segment_iters,
             )
             if cfg.cascade_skip_tol > 0:
@@ -497,7 +518,7 @@ def _fit_rows(b: NeighborhoodBatch, h0: np.ndarray, prior_rows: np.ndarray, plan
     warm_entry = (plan.chained or plan.use_cascade) and cfg.fine_entry_drain
     opt_all = optimize_mll_chunked(
         h_d, fx, fy, fm, fine_cfg, chunk_rows=chunk, segment_iters=cfg.opt_segment_iters,
-        lead_schedule=((0,) + _SEG_SCHEDULE) if warm_entry else None,
+        lead_schedule=((0,) + _seg_schedule()) if warm_entry else None,
     )
     lh_all = opt_all.log_hypers.cpu().numpy()
     _stage(stats, prefix + "opt", cap, len(b), t_opt, int(opt_all.iters.sum()),
@@ -581,7 +602,7 @@ def interpolate_daily(
     ds: ObsDataset,
     day: int,
     prior_mean,
-    config: DailyConfig = DailyConfig(),
+    config: Optional[DailyConfig] = None,
     precomputed_hypers: Optional[Union[str, dict]] = None,
     init_hypers: Optional[dict] = None,
     stats: Optional[list] = None,
@@ -597,6 +618,8 @@ def interpolate_daily(
         ``ds.dates[day + T//2]`` (reference ``:211,216``).
       prior_mean: scalar prior mean (``data.prior.constant_fyi_prior``) or a
         (G, G) field whose NaN cells fall back to its finite mean.
+      config: None is ``DailyConfig()`` built at this call, so environment
+        knobs set after import take effect.
       precomputed_hypers: the QUICKLOOK path (``GPR3D(opt=False)``): (G, G)
         hyperparameter fields as :func:`load_hypers` takes them. Pass 1 and
         the smoothing are skipped; every cell is predicted once.

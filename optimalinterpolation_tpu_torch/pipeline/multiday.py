@@ -292,7 +292,7 @@ def interpolate_days(
     ds: ObsDataset,
     days: Sequence[int],
     priors: Sequence,
-    config: DailyConfig = DailyConfig(),
+    config: Optional[DailyConfig] = None,
     init_hypers: Optional[Sequence[Optional[dict]]] = None,
     precomputed_hypers: Optional[Union[str, dict]] = None,
     stats: Optional[list] = None,
@@ -307,6 +307,7 @@ def interpolate_days(
         ``ds.dates[days[i] + T//2]``).
       priors: per-day prior means aligned with ``days``, scalars and/or
         (G, G) fields (see ``interpolate_daily``'s ``prior_mean``).
+      config: None is ``DailyConfig()`` built at this call.
       init_hypers: optional per-day warm-start fields (None for a day
         without one), as ``interpolate_daily`` takes them: cells start from
         them (newly active cells from the nearest one), and the seed pass
@@ -328,7 +329,7 @@ def interpolate_days(
     Each predicted bucket logs one INFO record with args ``(N, cells, tile
     rows, seconds)``; each stage one INFO record ``stage {...}``.
     """
-    cfg = config
+    cfg = config if config is not None else DailyConfig()
     device = torch.device(device)
     dtype = np.dtype(cfg.dtype)
     grid_res_m = ds.grid_res_km * 1000.0

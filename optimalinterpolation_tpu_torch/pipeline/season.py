@@ -55,7 +55,7 @@ def seasonal_average_hypers(results: Sequence[DailyResult]) -> dict:
 class SeasonConfig:
     """Season knobs; defaults as in the JAX package's ``SeasonConfig``."""
 
-    daily: DailyConfig = DailyConfig()
+    daily: DailyConfig = dataclasses.field(default_factory=DailyConfig)
     outdir: str = "."
     write_pickles: bool = True
     write_quicklook: bool = True

@@ -127,7 +127,7 @@ def test_k1_matern_blocks_against_float64(card, noise):
 
 
 @pytest.mark.parametrize("kind", list(Kernel))
-@pytest.mark.parametrize("n", [128, 384])
+@pytest.mark.parametrize("n", [128, 256, 384])  # 128 / 256: OI_BUCKET_128 / OI_BUCKET_256
 def test_k2_matches_twin(card, kind, n):
     rng = np.random.default_rng(n)
     b = 6
@@ -184,7 +184,7 @@ def _k3_problem(rng, b, n, card):
 
 
 @pytest.mark.parametrize("kind,n", [(k, 128) for k in Kernel]
-                         + [(Kernel.MATERN32, 512), (Kernel.MATERN32, 1024)])
+                         + [(Kernel.MATERN32, n) for n in (256, 512, 1024)])
 def test_k3_matches_twin(card, kind, n):
     args = _k3_problem(np.random.default_rng(n), 6, n, card)
     before = (fused_gp.gp_nll.launches, fused_gp.gp_nll_and_grad.launches)
