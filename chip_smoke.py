@@ -65,12 +65,17 @@ phase:
   9. season  ``pipeline.season.run_season`` on a second synthetic season (the
              same parameters, 12 days: windows 0-3) in strided waves of two
              days: wave 0 windows 0 and 2, cold and spatially seeded; wave 1
-             windows 1 and 3, each started from its predecessor's fit. Per
-             wave: cells, wall (first gather to last pickle), cells/s, the
-             stage entries, launches, K3 value launches by rows, host
-             synchronisations, peak memory, and the host seconds outside
-             the stages (gather, window, nearest fill, pickle). Fails unless
-             every pickle has 15 keys with every active cell finite, 64
+             windows 1 and 3, each started from its predecessor's fit; each
+             day's pickle and quicklook NetCDF written. Per wave: cells, wall
+             (first gather to last file), cells/s, the stage entries,
+             launches, K3 value launches by rows, host synchronisations,
+             peak memory, and the host seconds outside the stages (gather,
+             window, nearest fill, pickle, NetCDF); per NetCDF its bytes and
+             write seconds. Fails unless every NetCDF, read back by
+             ``read_quicklook``, holds its pickle's ``interp_smth.T`` and
+             ``interp_error_smth.T`` and the grid's lat / lon transposed, bit
+             for bit with NaNs in place, under a title that starts with the
+             date, every pickle has 15 keys with every active cell finite, 64
              cells of each bucket of each day are within 1e-4 m of the
              float64 twin at the pickle's smoothed hypers, every day meets
              the fit phase's optimum gates on the rows its wave fitted, K1, K2 and both K3 variants
@@ -90,8 +95,9 @@ phase:
              (c) ``hypers`` over the four season pickles (4 days, finite
              cells) and regridded onto a 50 km grid with the built-in ocean
              mask; (d) the quicklook day through ``cli.main(["daily", ...,
-             "--hypers", H, "--prior-background", "9", "--profile", LOGDIR])``
-             at full width: 15 keys, every active cell finite, K1 and K2
+             "--hypers", H, "--prior-background", "9", "--profile", LOGDIR,
+             "--quicklook"])`` at full width: its NetCDF as the season
+             phase's are checked, 15 keys, every active cell finite, K1 and K2
              launched and K3 not, 64 cells of each bucket within 1e-4 m of
              the float64 twin at those hypers and that prior field, and the
              Chrome trace under LOGDIR naming K1's and K2's kernels, with
@@ -173,6 +179,17 @@ phase:
              rounding), at most 0.0120 + 0.00055 m under the port's.
              ``tools/north_star_day.py`` runs the full-scale day (17,149
              cells, 0.0116 m) with the same gates.
+ 16. season_cli  the ``season`` command itself, ``cli.main(["season", ...,
+             "--hypers", H, "--days", "0:2", "--day-parallel", "2"])`` on the
+             season phase's season at the chain phase's seasonal hypers (25
+             km, 320 x 320, predict only, one wave of two days): 2 pickles
+             and 2 NetCDFs, each NetCDF checked as the season phase's, every
+             active cell finite, K1 and K2 launched and K3 not; a second
+             identical call resumes both days with no launch and no file
+             rewritten. Wall, cells/s, NetCDF seconds and bytes.
+
+Phases 9, 10 and 16 run with ``sys.modules["h5py"] = None``, so every
+NetCDF is written and read by ``io/hdf5.py`` even where h5py is installed.
 
 The fit phase's day must also give an earlier run's launches and rmse to
 the bit (``EARLIER_FIT``): the gather's arrays do not depend on how it
@@ -1342,6 +1359,7 @@ HOST_STEPS = {
     "window": [("pipeline.multiday", "flatten_window")],
     "nearest_fill": [("pipeline.multiday", "nearest_fill"), ("pipeline.daily", "nearest_fill")],
     "pickle": [("pipeline.season", "save_pickle")],
+    "netcdf": [("pipeline.season", "write_result_quicklook")],
 }
 
 
@@ -1407,8 +1425,8 @@ class _SeasonProbe:
             setattr(mod, attr, fn)
 
     def report(self, j: int) -> dict:
-        """Wave ``j``: the wall from its first gather to its last pickle and
-        the host seconds of each step outside the stages."""
+        """Wave ``j``: the wall from its first gather to its last output file
+        and the host seconds of each step outside the stages."""
         w = dict(self.waves[j])
         t_next = self.waves[j + 1]["t0"] if j + 1 < len(self.waves) else float("inf")
         spans = [sp for sp in self.spans if w["t0"] <= sp[1] < t_next]
@@ -1476,6 +1494,66 @@ def _wave_fit_batches(wave: list) -> list:
     return out
 
 
+@contextlib.contextmanager
+def _without_h5py():
+    """``import h5py`` raises inside, as on a machine without h5py: the
+    quicklook NetCDFs go through ``io/hdf5.py``."""
+    had, prev = "h5py" in sys.modules, sys.modules.get("h5py")
+    sys.modules["h5py"] = None
+    try:
+        yield
+    finally:
+        if had:
+            sys.modules["h5py"] = prev
+        else:
+            del sys.modules["h5py"]
+
+
+@contextlib.contextmanager
+def _netcdf_writes(module):
+    """Wraps ``module.write_result_quicklook``; yields {path: seconds of its
+    write}."""
+    write, seconds = module.write_result_quicklook, {}
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        path = write(*args, **kw)
+        seconds[path] = time.perf_counter() - t0
+        return path
+
+    module.write_result_quicklook = timed
+    try:
+        yield seconds
+    finally:
+        module.write_result_quicklook = write
+
+
+def _check_netcdf(path: str, res: dict, date: str, lonlat, write_s: dict) -> dict:
+    """The quicklook NetCDF at ``path``, read back by ``read_quicklook``,
+    against its pickle ``res``: ``radar_freeboard`` is ``interp_smth.T``,
+    ``uncertainty`` ``interp_error_smth.T`` and ``lat`` / ``lon`` the grid's
+    (``lonlat``) transposed, bit for bit with NaNs in place; the title
+    starts with the date. Returns its bytes and its write (``write_s``) and
+    read seconds."""
+    from optimalinterpolation_tpu_torch.io.quicklook import read_quicklook
+
+    t0 = time.perf_counter()
+    q = read_quicklook(path)
+    read_s = time.perf_counter() - t0
+    name = os.path.basename(path)
+    if q.date != date:
+        _fail(f"{name}: the title starts with {q.date!r}, not {date}")
+    lon, lat = lonlat
+    for field, ref in (("radar_freeboard", res[f"{date}_interp_smth"]),
+                       ("uncertainty", res[f"{date}_interp_error_smth"]),
+                       ("lat", lat), ("lon", lon)):
+        got, want = getattr(q, field), np.ascontiguousarray(ref.T, dtype=np.float64)
+        if not (got.dtype == np.float64 and got.shape == want.shape
+                and np.array_equal(got.view(np.uint64), want.view(np.uint64))):
+            _fail(f"{name}: {field} is not the pickle's field transposed, bit for bit")
+    return {"bytes": os.path.getsize(path), "write_s": write_s[path], "read_s": read_s}
+
+
 def _run_season(ds, outdir: str):
     """``run_season`` over ``SEASON_WINDOWS`` at the fit settings of the
     ``daily`` and ``season`` commands' defaults, those of the fit phase's
@@ -1488,8 +1566,7 @@ def _run_season(ds, outdir: str):
 
     lines = []
     daily = DailyConfig(opt=OptimizeConfig(ftol_abs=1e-3), jitter=1e-6)
-    cfg = SeasonConfig(daily=daily, outdir=outdir, day_parallel=DAY_PARALLEL,
-                       write_quicklook=False)
+    cfg = SeasonConfig(daily=daily, outdir=outdir, day_parallel=DAY_PARALLEL)
     res = run_season(ds, cfg, days=SEASON_WINDOWS, prior_fn=lambda d: PRIOR, log=lines.append)
     torch.cuda.synchronize()
     return res, lines
@@ -1502,6 +1579,8 @@ def phase_season(fit: dict, tmp: str) -> dict:
     from optimalinterpolation_tpu_torch.data.reader import read_freeboard_season
     from optimalinterpolation_tpu_torch.data.synthetic import make_synthetic_season
     from optimalinterpolation_tpu_torch.io.pickles import load_pickle
+    from optimalinterpolation_tpu_torch.io.quicklook import grid_lonlat
+    from optimalinterpolation_tpu_torch.pipeline import season
 
     t0 = time.perf_counter()
     make_synthetic_season(tmp, grid_res_km=RES_KM, n_days=SEASON_DAYS, seed=7,
@@ -1517,7 +1596,8 @@ def phase_season(fit: dict, tmp: str) -> dict:
     try:
         _zero_counts()
         t0 = time.perf_counter()
-        results, lines = _run_season(ds, out)
+        with _netcdf_writes(season) as write_s:
+            results, lines = _run_season(ds, out)
         season_s = time.perf_counter() - t0
         launches = _counts()
         waves = [probe.report(j) for j in range(len(probe.waves))]
@@ -1540,18 +1620,22 @@ def phase_season(fit: dict, tmp: str) -> dict:
         for w, b in zip(wave, _wave_fit_batches([days[w] for w in wave])):
             fit_batches[w] = b
     checks = {}
+    lonlat = grid_lonlat(ds.x, ds.y)
     for w, day in days.items():
         res = load_pickle(os.path.join(out, f"CS2S3_{day.date}_{RES_KM}km.pkl"))
         if len(res) != 15:
             _fail(f"{day.date}: the pickle has {len(res)} keys, not 15")
         day.check_finite(res, day.date, [k[len(day.date) + 1:] for k in res])
+        netcdf = _check_netcdf(os.path.join(out, f"CS2S3_{day.date}_{RES_KM}km_quicklook.nc"),
+                               res, day.date, lonlat, write_s)
         check = day.check_predict(res, day.date, "_smth")
         checks[day.date] = {
             "window": w, "active_cells": int(day.active.sum()),
             "rmse_vs_truth_m": day.rmse(res[f"{day.date}_interp_smth"]),
             "rmse_pass1_vs_truth_m": day.rmse(res[f"{day.date}_interp"]),
             "pass2_vs_f64": {str(n): {"cells": c, "d_mean": dm, "d_std": ds_}
-                             for n, (c, dm, ds_) in check.items()}}
+                             for n, (c, dm, ds_) in check.items()},
+            "netcdf": netcdf}
         t_opt = time.perf_counter()
         optimum = _check_optimum(day, res, day.date, fit_batches[w])
         checks[day.date]["optimum_vs_f64"] = {str(n): v for n, v in optimum.items()}
@@ -1730,8 +1814,8 @@ def phase_chain(tmp: str, season: dict) -> dict:
     from optimalinterpolation_tpu_torch.data.prior import background_prior
     from optimalinterpolation_tpu_torch.data.reader import read_freeboard_season
     from optimalinterpolation_tpu_torch.data.synthetic import make_synthetic_season
+    from optimalinterpolation_tpu_torch.io import quicklook
     from optimalinterpolation_tpu_torch.io.pickles import load_pickle
-    from optimalinterpolation_tpu_torch.io.quicklook import grid_lonlat
     from optimalinterpolation_tpu_torch.pipeline.daily import _prior_at_cells
 
     t_phase = time.perf_counter()
@@ -1761,16 +1845,21 @@ def phase_chain(tmp: str, season: dict) -> dict:
     _phase("chain_hypers", grid_25km={**hypers, "seconds": hypers_s},
            regrid_50km_builtin_mask={**hypers50, "seconds": hypers50_s})
 
-    # the quicklook day at the seasonal hypers and the background prior, profiled
+    # the quicklook day at the seasonal hypers and the background prior,
+    # profiled, with its NetCDF
     logdir = os.path.join(tmp, "profile")
-    res, date, launches, _, day_s, handler = _run_daily(
-        tmp, ["--hypers", hyp, "--profile", logdir], prior_argv=("--prior-background", "9"))
+    with _netcdf_writes(quicklook) as write_s:
+        res, date, launches, _, day_s, handler = _run_daily(
+            tmp, ["--hypers", hyp, "--profile", logdir, "--quicklook"],
+            prior_argv=("--prior-background", "9"))
     day = _Day(tmp, DAY)
     day.check_finite(res, date, ("interp", "interp_error", "lZ", "interp_smth",
                                  "interp_error_smth"))
     if launches["K1"] == 0 or launches["K2"] == 0 or launches["K3 value"] + launches["K3 grad"]:
         _fail(f"the quicklook day must launch K1 and K2 and not K3: {launches}")
-    _, lat = grid_lonlat(ds.x, ds.y)
+    lon, lat = quicklook.grid_lonlat(ds.x, ds.y)
+    netcdf = _check_netcdf(os.path.join(tmp, f"CS2S3_{date}_{RES_KM}km_quicklook.nc"), res,
+                           date, (lon, lat), write_s)
     prior_cells, _ = _prior_at_cells(background_prior(ds.obs, lat, n_days=9),
                                      day.active.shape, day.active_ij)
     check = day.check_predict(res, date, "_smth", prior_cells)
@@ -1790,7 +1879,7 @@ def phase_chain(tmp: str, season: dict) -> dict:
            trace_device_ms_all_kernels=sum(e["dur"] for e in events) / 1e3,
            trace_kernel_events=len(events), trace_mb=os.path.getsize(
                os.path.join(logdir, traces[0])) / 1e6,
-           rmse_vs_truth_m=day.rmse(res[f"{date}_interp_smth"]),
+           rmse_vs_truth_m=day.rmse(res[f"{date}_interp_smth"]), netcdf=netcdf,
            buckets=[{"n": n, "cells": c, "wall_s": w} for n, c, _, w in handler.buckets],
            pass2_vs_f64={str(n): {"cells": c, "d_mean": dm, "d_std": ds_}
                          for n, (c, dm, ds_) in check.items()})
@@ -1821,6 +1910,73 @@ def phase_chain(tmp: str, season: dict) -> dict:
     _phase("chain_validate", seconds=validate_s, pooled_rmse_m=pooled,
            **{k: stats[k] for k in ("days", "n", "bias", "rmse", "corr", "coverage", "mean_z")})
     _phase("chain", seconds=time.perf_counter() - t_phase, launches=launches)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# season_cli: the season command itself, at the seasonal hypers
+# ---------------------------------------------------------------------------
+
+
+def phase_season_cli(tmp: str, season: dict) -> dict:
+    """Phase 16 (see the module docstring) on the season phase's season in
+    ``tmp``, at the chain phase's seasonal hypers. Returns the first call's
+    launches."""
+    from optimalinterpolation_tpu_torch import cli
+    from optimalinterpolation_tpu_torch.io.pickles import load_pickle
+    from optimalinterpolation_tpu_torch.io.quicklook import grid_lonlat
+    from optimalinterpolation_tpu_torch.pipeline import season as season_mod
+
+    out = os.path.join(tmp, "season_cli")
+    argv = ["season", "--datapath", tmp, "--grid-res", str(RES_KM), "--prior-mean", str(PRIOR),
+            "--hypers", os.path.join(tmp, f"hypers_{RES_KM}km.npz"), "--days", "0:2",
+            "--day-parallel", "2", "--outdir", out]
+    calls = []
+    for _ in range(2):  # the second call resumes both days
+        _zero_counts()
+        log = io.StringIO()
+        with _netcdf_writes(season_mod) as write_s, contextlib.redirect_stdout(log):
+            t0 = time.perf_counter()
+            cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        calls.append({"wall_s": wall, "launches": _counts(), "log": log.getvalue().splitlines(),
+                      "write_s": write_s,
+                      "files": {f: os.stat(os.path.join(out, f)).st_mtime_ns
+                                for f in sorted(os.listdir(out))}})
+    first, again = calls
+    launches = first["launches"]
+    kinds = [sum(f.endswith(k) for f in first["files"]) for k in ("km.pkl", "_quicklook.nc")]
+    if kinds != [2, 2] or len(first["files"]) != 4:
+        _fail(f"the season command wrote {sorted(first['files'])}, not 2 pickles and 2 NetCDFs")
+    if launches["K1"] == 0 or launches["K2"] == 0 or launches["K3 value"] + launches["K3 grad"]:
+        _fail(f"the season command at seasonal hypers must launch K1 and K2 and not K3: "
+              f"{launches}")
+    x = np.load(os.path.join(tmp, f"x_{RES_KM}km.npy"))
+    y = np.load(os.path.join(tmp, f"y_{RES_KM}km.npy"))
+    lonlat = grid_lonlat(x, y)
+    cells, netcdf = 0, {}
+    for w in (0, 1):
+        day = season["days"][w]
+        res = load_pickle(os.path.join(out, f"CS2S3_{day.date}_{RES_KM}km.pkl"))
+        if len(res) != 15:
+            _fail(f"season command, {day.date}: the pickle has {len(res)} keys, not 15")
+        day.check_finite(res, day.date, ("interp", "interp_error", "lZ", "interp_smth",
+                                         "interp_error_smth"))
+        netcdf[day.date] = _check_netcdf(
+            os.path.join(out, f"CS2S3_{day.date}_{RES_KM}km_quicklook.nc"), res, day.date,
+            lonlat, first["write_s"])
+        cells += int(day.active.sum())
+    resumed = sum("skipping (resume)" in line for line in again["log"])
+    if any(again["launches"].values()) or again["files"] != first["files"] or resumed != 2:
+        _fail(f"the second season command did not resume both days untouched: launches "
+              f"{again['launches']}, log {again['log']}")
+    _phase("season_cli", argv=argv, windows=[0, 1], day_parallel=2, cells=cells,
+           wall_s=first["wall_s"], cells_per_s=cells / first["wall_s"],
+           netcdf_write_s=sum(v["write_s"] for v in netcdf.values()), netcdf=netcdf,
+           launches=launches, log=first["log"],
+           resume={"wall_s": again["wall_s"], "launches": again["launches"],
+                   "files_rewritten": 0})
     return launches
 
 
@@ -2438,9 +2594,10 @@ def main() -> int:
         cell = timed("cell", phase_cell, tmp, day)
         adam = timed("adam", phase_adam, tmp, fit)
         devices = timed("devices", phase_devices, tmp, day, quick, fit)
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, _without_h5py():
         season = timed("season", phase_season, fit, tmp)
         chain = timed("chain", phase_chain, tmp, season)
+        season_cli = timed("season_cli", phase_season_cli, tmp, season)
     northstar = timed("northstar", phase_northstar)
     _phase("seconds", **seconds)
 
@@ -2448,7 +2605,8 @@ def main() -> int:
         return {"launches": fit[name], "launches_by_path": {
             "quicklook": quick[name], "fit": fit[name],
             "season": {wave: season[wave][name] for wave in ("cold", "chained")},
-            "chain": chain[name], "cell": cell[name], "adam": adam[name],
+            "chain": chain[name], "season_cli": season_cli[name], "cell": cell[name],
+            "adam": adam[name],
             "devices (two shards)": devices[name], "knobs": knobs[name],
             **{f"northstar ({r} routing)": northstar[r][name] for r in north_star.ROUTINGS}}}
 
@@ -2459,15 +2617,16 @@ def main() -> int:
         {"name": "K1 factor_invert_128", "route": "cuda",
          "source": "optimalinterpolation_tpu_torch/csrc/k1_factor_invert.cu",
          "replaces": "optimalinterpolation_tpu/ops/blocked_gp.py:80", **k1_paths,
-         "launched_by": ["blocked predict (quicklook, fit, season waves, chain, Adam day)",
+         "launched_by": ["blocked predict (quicklook, fit, season waves, chain, season_cli, "
+                         "Adam day)",
                          "blocked objective (north star, JAX routing, N = 512)",
                          "Nystrom chol_inv (cell at N = 4096, Adam day at 2048 / 4096, "
                          "knobs' cascade at n = 512, north star's JAX routing at 1024)"], **k1},
         {"name": "K2 fused predict", "route": "cuda",
          "source": "optimalinterpolation_tpu_torch/csrc/k2_predict.cu",
          "replaces": "optimalinterpolation_tpu/ops/pallas_gp.py:795", **paths("K2"),
-         "launched_by": ["fused predict (quicklook, fit, chain, Adam day; knobs at N = 128 / "
-                         "256)", waves], **k2},
+         "launched_by": ["fused predict (quicklook, fit, chain, season_cli, Adam day; knobs at "
+                         "N = 128 / 256)", waves], **k2},
         {"name": "K3 fused NLL + gradient", "route": "cuda",
          "source": "optimalinterpolation_tpu_torch/csrc/k3_nll_grad.cu",
          "replaces": "optimalinterpolation_tpu/ops/pallas_gp.py:501",
@@ -2479,6 +2638,8 @@ def main() -> int:
                                          for wave in ("cold", "chained")},
                               "chain": {"value": chain["K3 value"],
                                         "grad": chain["K3 grad"]},
+                              "season_cli": {"value": season_cli["K3 value"],
+                                             "grad": season_cli["K3 grad"]},
                               "cell": {"value": cell["K3 value"], "grad": cell["K3 grad"]},
                               "adam": {"value": adam["K3 value"], "grad": adam["K3 grad"]},
                               "devices (two shards)": {"value": devices["K3 value"],

@@ -28,9 +28,9 @@ writes. ``--device`` picks the card or, for tests and small runs, ``cpu``;
 ``--profile LOGDIR`` writes a ``torch.profiler`` Chrome trace of the run.
 ``--optimizer adam`` fits with Adam instead of L-BFGS (``daily``, ``season``
 with waves of one day, ``cell --method exact``). ``cell --figure`` needs
-matplotlib. ``--devices N`` shards every bucket's cells over N devices of
-``--device``'s type (``daily``, ``season``; ``cell`` takes it and, as in the
-JAX package, fits its one cell on one device).
+matplotlib, checked before the fit. ``--devices N`` shards every bucket's
+cells over N devices of ``--device``'s type (``daily``, ``season``; ``cell``
+takes it and, as in the JAX package, fits its one cell on one device).
 """
 
 from __future__ import annotations
@@ -218,6 +218,11 @@ def cmd_cell(args):
     from optimalinterpolation_tpu_torch.models import exact_gp
     from optimalinterpolation_tpu_torch.ops.kernels import Kernel
 
+    if args.figure:  # checked before the fit, not after it
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError as e:
+            raise RuntimeError("cell --figure needs matplotlib, which is not installed") from e
     ds, _ = _setup(args)
     prior = _prior(args, ds)(args.day)
     if np.ndim(prior) == 2:  # a field: sampled at the nearest grid cell
@@ -472,7 +477,7 @@ def main(argv=None):
     _add_daily_args(p)
     p.add_argument("--day", type=int, default=0, help="window start index")
     p.add_argument("--quicklook", action="store_true",
-                   help="also write the quicklook NetCDF (reference schema; needs h5py)")
+                   help="also write the quicklook NetCDF (reference schema)")
     p.set_defaults(fn=cmd_daily)
 
     p = sub.add_parser("season", help="produce a season of daily fields")

@@ -4,13 +4,16 @@ The reference publishes daily fields as NetCDF4 files
 (``QuickLook Data/CS2S3_YYYYMMDD_25km_quicklook.nc``) with variables ``lat``,
 ``lon`` (320x320 float64), ``radar_freeboard`` and ``uncertainty`` [m], plus
 global attrs title/file_created_by/date_created/data_type. NetCDF4 is HDF5
-underneath, so these files are read and written with h5py, with
-netCDF-compatible names, so downstream netCDF tooling opens them unchanged.
+underneath, with netCDF-compatible names, so downstream netCDF tooling opens
+these files unchanged.
 
 Copy of ``optimalinterpolation_tpu/io/quicklook.py``, kept because importing
 any module of that package imports JAX; ``tests/test_torch_data.py`` pins the
-two equal. One difference: h5py is imported only when a file is written or
-read, so the port imports without it (the card's machine may lack it).
+two equal. One difference: the bytes are written and read by ``io/hdf5.py``
+(numpy and ``struct``) instead of h5py, in the layout h5py writes, so the
+port writes and reads its own and the JAX package's files without h5py.
+h5py is needed only to read a file outside that subset, such as the
+reference's netCDF4-library files.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import datetime as _dt
 import os
 
 import numpy as np
+
+from optimalinterpolation_tpu_torch.io.hdf5 import read_hdf5, write_hdf5
 
 __all__ = [
     "QuicklookField",
@@ -69,40 +74,36 @@ class QuicklookField:
     uncertainty: np.ndarray  # (G, G) [m]
 
 
-def _h5py():
-    try:
-        import h5py
-    except ImportError as e:
-        raise RuntimeError("h5py is required for quicklook NetCDF I/O") from e
-    return h5py
-
-
 def write_quicklook(field: QuicklookField, path: str, creator: str | None = None) -> None:
     """Write one daily field in the reference quicklook schema."""
-    h5py = _h5py()
     if field.radar_freeboard.shape[0] != field.lat.shape[0]:
         raise ValueError(f"field grid {field.radar_freeboard.shape} != lat grid {field.lat.shape}")
-    with h5py.File(path, "w") as f:
-        lat = f.create_dataset("lat", data=field.lat.astype(np.float64))
-        lon = f.create_dataset("lon", data=field.lon.astype(np.float64))
-        fb = f.create_dataset("radar_freeboard", data=field.radar_freeboard.astype(np.float64))
-        un = f.create_dataset("uncertainty", data=field.uncertainty.astype(np.float64))
-        lat.attrs["units"] = np.bytes_(b"degrees_north")
-        lat.attrs["long_name"] = np.bytes_(b"latitude")
-        lon.attrs["units"] = np.bytes_(b"degrees_east")
-        lon.attrs["long_name"] = np.bytes_(b"longitude")
-        fb.attrs["units"] = np.bytes_(b"metres")
-        fb.attrs["standard_name"] = np.bytes_(b"radar_freeboard")
-        un.attrs["units"] = np.bytes_(b"metres")
-        un.attrs["standard_name"] = np.bytes_(b"radar_freeboard_uncertainty")
-        f.attrs["title"] = np.bytes_(
-            f"{field.date} CS2S3 radar freeboard and uncertainty".encode()
-        )
-        f.attrs["file_created_by"] = np.bytes_(
-            (creator or "optimalinterpolation-tpu").encode()
-        )
-        f.attrs["date_created"] = np.bytes_(_dt.date.today().strftime("%Y%m%d").encode())
-        f.attrs["data_type"] = np.bytes_(b"Quick Look")
+    write_hdf5(
+        path,
+        {"lat": field.lat, "lon": field.lon, "radar_freeboard": field.radar_freeboard,
+         "uncertainty": field.uncertainty},
+        {"lat": {"units": b"degrees_north", "long_name": b"latitude"},
+         "lon": {"units": b"degrees_east", "long_name": b"longitude"},
+         "radar_freeboard": {"units": b"metres", "standard_name": b"radar_freeboard"},
+         "uncertainty": {"units": b"metres", "standard_name": b"radar_freeboard_uncertainty"}},
+        {"title": f"{field.date} CS2S3 radar freeboard and uncertainty".encode(),
+         "file_created_by": (creator or "optimalinterpolation-tpu").encode(),
+         "date_created": _dt.date.today().strftime("%Y%m%d").encode(),
+         "data_type": b"Quick Look"},
+    )
+
+
+def _read_h5py(path: str, err: ValueError) -> tuple:
+    """The quicklook datasets and root attributes of a file outside
+    ``io/hdf5.py``'s subset, through h5py."""
+    try:
+        import h5py
+    except ImportError:
+        raise RuntimeError(f"h5py is required to read {path}, which io/hdf5.py cannot "
+                           f"read") from err
+    with h5py.File(path, "r") as f:
+        names = ("lat", "lon", "_nc4_non_coord_lon", "radar_freeboard", "uncertainty")
+        return {k: f[k][()] for k in names if k in f}, {"title": f.attrs.get("title", b"")}
 
 
 def read_quicklook(path: str) -> QuicklookField:
@@ -110,19 +111,22 @@ def read_quicklook(path: str) -> QuicklookField:
 
     The reference files store ``lon`` under the netCDF4 mangled name
     ``_nc4_non_coord_lon`` (a non-coordinate variable clashing with a
-    dimension name); both spellings are accepted.
+    dimension name); both spellings are accepted. Files outside
+    ``io/hdf5.py``'s subset (the netCDF4 library's) are read with h5py.
     """
-    h5py = _h5py()
-    with h5py.File(path, "r") as f:
-        lon_key = "_nc4_non_coord_lon" if "_nc4_non_coord_lon" in f else "lon"
-        title = f.attrs.get("title", b"")
-        if isinstance(title, bytes):
-            title = title.decode(errors="replace")
-        date = title.split(" ")[0] if title else ""
-        return QuicklookField(
-            date=date,
-            lat=f["lat"][()],
-            lon=f[lon_key][()],
-            radar_freeboard=f["radar_freeboard"][()],
-            uncertainty=f["uncertainty"][()],
-        )
+    try:
+        data, _, attrs = read_hdf5(path)
+    except ValueError as err:
+        data, attrs = _read_h5py(path, err)
+    lon_key = "_nc4_non_coord_lon" if "_nc4_non_coord_lon" in data else "lon"
+    title = attrs.get("title", b"")
+    if isinstance(title, bytes):
+        title = title.decode(errors="replace")
+    date = title.split(" ")[0] if title else ""
+    return QuicklookField(
+        date=date,
+        lat=data["lat"],
+        lon=data[lon_key],
+        radar_freeboard=data["radar_freeboard"],
+        uncertainty=data["uncertainty"],
+    )

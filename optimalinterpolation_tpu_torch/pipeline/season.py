@@ -25,7 +25,7 @@ import torch
 from optimalinterpolation_tpu_torch.data.prior import constant_fyi_prior
 from optimalinterpolation_tpu_torch.data.reader import ObsDataset
 from optimalinterpolation_tpu_torch.io.pickles import load_pickle, save_pickle
-from optimalinterpolation_tpu_torch.io.quicklook import _h5py, grid_lonlat, write_result_quicklook
+from optimalinterpolation_tpu_torch.io.quicklook import grid_lonlat, write_result_quicklook
 from optimalinterpolation_tpu_torch.pipeline.daily import (
     HYPER_NAMES,
     DailyConfig,
@@ -139,7 +139,6 @@ def run_season(
     os.makedirs(cfg.outdir, exist_ok=True)
     lonlat = None
     if cfg.write_quicklook:
-        _h5py()  # raises now without h5py, not after the first day's fit
         lonlat = grid_lonlat(ds.x, ds.y)
 
     chaining = cfg.chain_warmstart and precomputed_hypers is None

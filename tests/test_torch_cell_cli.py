@@ -6,13 +6,15 @@ Nystrom (BFGS, 64 landmarks drawn by the same seeded numpy generator): the
 mean, std, lZ / NLL and hyperparameters agree to 1e-6 relative, with equal
 iterations (reached: ~1e-12). SVGP draws its minibatches from a torch
 generator, which JAX's stream cannot match: the JAX test's checks. Also the
-empty neighbourhood, ``--figure`` and ``daily --optimizer adam``.
+empty neighbourhood, ``--figure`` (and without matplotlib) and ``daily
+--optimizer adam``.
 """
 
 import contextlib
 import io
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -87,6 +89,22 @@ def test_cell_figure_writes_both_pngs(tiny_season, tmp_path):
     for f in line["figures"]:
         with open(f, "rb") as fh:
             assert fh.read(8) == b"\x89PNG\r\n\x1a\n"
+
+
+def test_cell_figure_without_matplotlib_fails_before_the_fit(tiny_season, tmp_path,
+                                                             monkeypatch):
+    """Without matplotlib ``cell --figure`` raises the RuntimeError naming it
+    before any fit, and writes nothing."""
+    from optimalinterpolation_tpu_torch.models import optimizer
+
+    def never(*args, **kwargs):
+        raise AssertionError("the cell was fitted")
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)  # ``import matplotlib`` raises
+    monkeypatch.setattr(optimizer, "optimize_mll", never)
+    with pytest.raises(RuntimeError, match="matplotlib"):
+        main(_cell_argv(tiny_season, "--device", "cpu", "--figure", str(tmp_path / "cell")))
+    assert os.listdir(tmp_path) == []
 
 
 def test_cell_rejects_empty_neighborhood(tiny_season):
