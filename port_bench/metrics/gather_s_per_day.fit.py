@@ -1,0 +1,9 @@
+"""Seconds a day in the program's neighbour gather, from the benchmark's
+host span around each call (``multiday.gather_neighborhoods``), in the
+fit cells."""
+
+from port_bench.core import readers
+
+
+def read(run):
+    return readers.span_seconds_per_day(run, "gather")

@@ -1,0 +1,9 @@
+"""K2's share of its roofline, percent: the least time its launches'
+work needs (``port_bench/kernels/k2.py``) over their device time by name in
+the traced window."""
+
+from port_bench.core import readers
+
+
+def read(run):
+    return readers.roofline(run, "k2")
