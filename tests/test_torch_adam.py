@@ -10,7 +10,7 @@ NLL to 1e-10 relative, and iterations and convergence flags are equal
 path does. The day: ``interpolate_daily`` with Adam (no seed pass, no
 cascade, every row fitted from x0 at its bucket's full capacity, then
 smoothing and pass 2) on the CLI tests' 250 km season, against the JAX
-day, at ``test_torch_daily.py``'s tolerances (reached: ~1e-15 m); a wave of
+day, at ``test_torch_daily_two_pass.py``'s tolerances (reached: ~1e-15 m); a wave of
 more than one day refuses Adam, as in the JAX package.
 """
 
@@ -28,8 +28,6 @@ from optimalinterpolation_tpu_torch.pipeline import daily as TD
 from optimalinterpolation_tpu_torch.pipeline import multiday as TM
 
 from .test_torch_optimizer import _h0, _padded_cells
-
-torch.set_num_threads(2)
 
 
 def _cells():

@@ -20,8 +20,6 @@ from optimalinterpolation_tpu_torch.models import nystroem as TN
 
 from . import oracle
 
-torch.set_num_threads(2)
-
 
 def _same(ref, got):
     assert got.nit == int(ref.nit) and got.status == int(ref.status)

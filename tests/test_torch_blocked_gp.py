@@ -14,8 +14,6 @@ from optimalinterpolation_tpu.models.exact_gp_batch import _predict_batch_xla
 from optimalinterpolation_tpu.ops import blocked_gp as JB
 from optimalinterpolation_tpu_torch.ops import blocked_gp as TB
 
-torch.set_num_threads(2)
-
 
 def _problem(seed, b, n, mask_p=0.85):
     """tests/test_pallas_gp.py::_problem's distribution, plus test points."""

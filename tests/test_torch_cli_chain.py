@@ -12,14 +12,11 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 from optimalinterpolation_tpu import cli as jcli
 from optimalinterpolation_tpu_torch.cli import main
 from optimalinterpolation_tpu_torch.data.synthetic import make_synthetic_season
 from optimalinterpolation_tpu_torch.io.pickles import load_pickle
-
-torch.set_num_threads(2)
 
 HYPERS = ("ell_x", "ell_y", "ell_t", "sf2", "sn2")
 

@@ -20,8 +20,6 @@ from optimalinterpolation_tpu_torch.ops.kernels import Kernel
 
 pytestmark = pytest.mark.cuda
 
-torch.set_num_threads(2)
-
 
 @pytest.fixture
 def card():

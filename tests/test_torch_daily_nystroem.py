@@ -6,12 +6,10 @@ Both packages run ``interpolate_daily`` on the same hand-sized dataset
 ``nystroem_m = 128``, so that the 256 bucket is fitted on the rank-128
 Nystrom objective (``ops.nystroem_gp``; K1's plain twin under its
 factorizations here) while the predicts stay exact. A file of its own: the
-JAX package compiles its Nystrom sweep once for it (~10 s), which would take
-tests/test_torch_daily.py over a minute.
+JAX package compiles its Nystrom sweep once for it (~10 s).
 """
 
 import numpy as np
-import torch
 
 from optimalinterpolation_tpu.models import optimizer as JO
 from optimalinterpolation_tpu.pipeline import daily as JD
@@ -19,8 +17,6 @@ from optimalinterpolation_tpu_torch.models import optimizer as TO
 from optimalinterpolation_tpu_torch.pipeline import daily as TD
 
 from .reference_flow import make_tiny_dataset
-
-torch.set_num_threads(2)
 
 
 def test_nystroem_routed_day_matches_jax():

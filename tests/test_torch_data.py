@@ -11,7 +11,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 from optimalinterpolation_tpu.data import neighbors as JN
 from optimalinterpolation_tpu.data import prior as JP
@@ -29,8 +28,6 @@ from optimalinterpolation_tpu_torch.data import regrid as TG
 from optimalinterpolation_tpu_torch.data import synthetic as TS
 from optimalinterpolation_tpu_torch.data import window as TW
 from optimalinterpolation_tpu_torch.io import quicklook as TQ
-
-torch.set_num_threads(2)
 
 
 @pytest.fixture(scope="module")

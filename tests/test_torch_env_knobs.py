@@ -6,17 +6,19 @@ read when a config is built or a function called, never at import (the JAX
 package's ``tests/test_env_knobs.py``, whose six tests are ported first).
 Every test sets its knobs with ``monkeypatch.setenv`` after both packages
 are imported. Then each knob's two-pass day, float64 on the CPU, against
-the JAX package's under the same knob: the stages, their cells, iteration
-sums and Nystrom ranks equal, predictions within 1e-6 m and the other fields
-within 1e-5 relative (the tolerances of
-``tests/test_torch_daily.py::test_two_pass_day_matches_jax``). Last, the
-North-star day's subsample and score (``tools/north_star.py``) against
-``bench.py``'s formulas, written out here.
+the JAX package's under the same knob (``check_knob_day``): the stages,
+their cells, iteration sums and Nystrom ranks equal, predictions within
+1e-6 m and the other fields within 1e-5 relative (the tolerances of
+``tests/test_torch_daily_two_pass.py::test_two_pass_day_matches_jax``).
+Its cases run in ``test_torch_knob_days.py``, ``test_torch_knob_days_cascade.py``
+and ``test_torch_knob_days_nystroem.py``, a file a topic, so that xdist's
+``--dist loadfile`` gives them to different workers. Last, the North-star
+day's subsample and score (``tools/north_star.py``) against ``bench.py``'s
+formulas, written out here.
 """
 
 import numpy as np
 import pytest
-import torch
 
 from optimalinterpolation_tpu.data import neighbors as JN
 from optimalinterpolation_tpu.models import optimizer as JO
@@ -29,8 +31,6 @@ from optimalinterpolation_tpu_torch.pipeline.season import SeasonConfig
 from tools import north_star
 
 from .reference_flow import make_tiny_dataset
-
-torch.set_num_threads(2)
 
 KNOBS = ("OI_BUCKET_128", "OI_BUCKET_256", "OI_OPT_N_MAX", "OI_CASCADE_SKIP_TOL",
          "OI_SEG_SCHEDULE", "OI_CASCADE_NYS_M", "OI_NYSTROEM_MIN_N", "OI_BLOCKED_MIN_N")
@@ -146,8 +146,9 @@ def _day(mod, opt_mod, ds, kw, max_iters):
     return res.to_reference_dict(), stats
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_knob_day_matches_jax(monkeypatch, case):
+def check_knob_day(monkeypatch, case):
+    """The port's day under ``CASES[case]`` against the JAX package's (see
+    the module docstring); the cases run in ``test_torch_knob_days*.py``."""
     env, coverage, radius, kw, max_iters = CASES[case]
     for k, v in env.items():
         monkeypatch.setenv(k, v)
@@ -198,23 +199,6 @@ def test_knob_day_matches_jax(monkeypatch, case):
     else:  # the override is inert: the stage stays on K3 (its twin here)
         assert [(e["stage"], e["n"], e["backend"]) for e in fits] == [
             ("cascade", 256, "fused"), ("opt", 288, "xla")]
-
-
-def test_cascade_nys_m_reaches_the_seed_pass(monkeypatch):
-    """With spatial seeding, the seed pass's cascade (cold, ``warmstart_n``)
-    and the main pass's (seeded, ``warmstart_n_seeded``) both launch on the
-    rank-M Nystrom objective; every fine stage keeps its routing."""
-    monkeypatch.setenv("OI_CASCADE_NYS_M", "128")
-    cfg = TD.DailyConfig(dtype="float64", jitter=1e-6, spatial_seed_stride=2, seed_opt_n=0,
-                         warmstart_n=256, warmstart_n_seeded=256, opt_n_max=288,
-                         opt=TO.OptimizeConfig(max_iters=2, ftol_abs=1e-3))
-    stats = []
-    TD.interpolate_daily(make_tiny_dataset(coverage=0.3, active_radius_cells=3.2), 0, 0.2, cfg,
-                         stats=stats, device="cpu")
-    assert [(e["stage"], e["n"], e["backend"], e.get("m")) for e in stats
-            if e["stage"].endswith(("cascade", "opt"))] == [
-        ("seed:cascade", 256, "nystroem", 128), ("seed:opt", 288, "xla", None),
-        ("cascade", 256, "nystroem", 128), ("opt", 288, "xla", None)]
 
 
 # ---- the North-star day's subsample and score -----------------------------

@@ -12,8 +12,6 @@ from optimalinterpolation_tpu_torch.models import exact_gp as TE
 from optimalinterpolation_tpu_torch.models import exact_gp_batch as TEB
 from optimalinterpolation_tpu_torch.ops import blocked_gp, fused_gp
 
-torch.set_num_threads(2)
-
 
 def _cell(seed, n=60, q=4):
     rng = np.random.default_rng(seed)

@@ -23,7 +23,6 @@ import torch
 from optimalinterpolation_tpu.ops import blocked_gp as JB
 from optimalinterpolation_tpu_torch.ops import blocked_gp as TB
 
-torch.set_num_threads(2)
 
 BLK, PW = 128, 32
 NP = BLK // PW

@@ -15,8 +15,6 @@ from optimalinterpolation_tpu.models.exact_gp_batch import _predict_batch_xla
 from optimalinterpolation_tpu.ops import pallas_gp
 from optimalinterpolation_tpu_torch.ops import fused_gp
 
-torch.set_num_threads(2)
-
 
 def _pallas_problem():
     """tests/test_pallas_gp.py::test_fused_predict_matches_xla's inputs."""

@@ -13,8 +13,6 @@ import torch
 from optimalinterpolation_tpu.ops import kernels as JK
 from optimalinterpolation_tpu_torch.ops import kernels as TK
 
-torch.set_num_threads(2)
-
 KINDS = ["matern12", "matern32", "matern52", "se"]
 
 

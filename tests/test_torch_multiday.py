@@ -8,7 +8,7 @@ packages. Inside the port, a wave gives each day what ``interpolate_daily``
 gives it, at the JAX test's own tolerances (1e-8 relative and 1e-10 m).
 Against the JAX package: all 15 reference-dict fields with identical NaN
 masks, predictions within 1e-6 m, lZ and hypers within 1e-5 relative (as
-``tests/test_torch_daily.py`` holds the day), and the same stage entries
+``tests/test_torch_daily_two_pass.py`` holds the day), and the same stage entries
 (names, N, cells and iteration sums). Other wave cases are in
 ``test_torch_multiday_paths.py`` and ``test_torch_multiday_seeded.py``,
 which take their helpers from here; each file runs in well under a minute.
@@ -26,8 +26,6 @@ from optimalinterpolation_tpu_torch.pipeline import daily as TD
 from optimalinterpolation_tpu_torch.pipeline import multiday as TM
 
 from .test_multiday import wave_season  # noqa: F401  (module-scoped fixture)
-
-torch.set_num_threads(2)
 
 PACKAGES = {"jax": (JD, JO), "torch": (TD, TO)}
 

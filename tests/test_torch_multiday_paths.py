@@ -11,7 +11,6 @@ package's run on the same inputs.
 
 import numpy as np
 import pytest
-import torch
 
 from optimalinterpolation_tpu.pipeline import multiday as JM
 from optimalinterpolation_tpu.pipeline import season as JS
@@ -22,8 +21,6 @@ from optimalinterpolation_tpu_torch.pipeline import season as TS
 from .test_multiday import wave_season  # noqa: F401  (module-scoped fixture)
 from .test_torch_multiday import assert_matches_jax, assert_same_days, stage_entries, wave_cfg
 from .test_torch_season_waves import run_unchained
-
-torch.set_num_threads(2)
 
 
 def quicklook_hypers(g: int) -> dict:

@@ -11,7 +11,6 @@ are also finite and track the synthetic truth.
 """
 
 import numpy as np
-import torch
 
 from optimalinterpolation_tpu.pipeline import multiday as JM
 from optimalinterpolation_tpu_torch.pipeline import multiday as TM
@@ -19,7 +18,6 @@ from optimalinterpolation_tpu_torch.pipeline import multiday as TM
 from .test_multiday import wave_season  # noqa: F401  (module-scoped fixture)
 from .test_torch_multiday import assert_matches_jax, stage_entries, wave_cfg
 
-torch.set_num_threads(2)
 
 # tests/test_multiday.py's seeded config with two changes, so that both
 # phases run: seed stride 8, whose sublattice [4::8, 4::8] meets the

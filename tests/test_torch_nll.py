@@ -22,8 +22,6 @@ from optimalinterpolation_tpu_torch.models import exact_gp as TE
 from optimalinterpolation_tpu_torch.ops import fused_gp
 from optimalinterpolation_tpu_torch.ops.kernels import Kernel
 
-torch.set_num_threads(2)
-
 N = 128
 
 

@@ -24,8 +24,6 @@ from optimalinterpolation_tpu_torch.ops import nystroem_gp as TN
 
 from .test_nystroem_backend import X0, _oracle_nll
 
-torch.set_num_threads(2)
-
 
 def _problem(seed, b=3, n=256, n_valid=None, ell=(1.5e5, 1.2e5, 2.0)):
     """tests/test_nystroem_backend.py::_problem's distribution, valid points

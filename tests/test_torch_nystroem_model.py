@@ -21,8 +21,6 @@ from optimalinterpolation_tpu_torch.models import nystroem as TN
 
 from . import oracle
 
-torch.set_num_threads(2)
-
 LOG_H = np.log(np.array([2.0e5, 1.5e5, 2.5, 0.03, 0.004]))
 
 

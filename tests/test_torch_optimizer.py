@@ -24,8 +24,6 @@ from optimalinterpolation_tpu_torch.models import optimizer as TO
 
 from . import oracle
 
-torch.set_num_threads(2)
-
 X0 = np.log(np.array([25e3, 25e3, 1.0, 1.0, 0.1]))  # the reference x0
 
 

@@ -15,7 +15,6 @@ import os
 import shutil
 
 import pytest
-import torch
 
 from optimalinterpolation_tpu.pipeline import season as JS
 from optimalinterpolation_tpu_torch.io.pickles import load_pickle
@@ -23,8 +22,6 @@ from optimalinterpolation_tpu_torch.pipeline import season as TS
 
 from .test_multiday import wave_season  # noqa: F401  (module-scoped fixture)
 from .test_torch_multiday import assert_matches_jax, wave_cfg
-
-torch.set_num_threads(2)
 
 DAYS = [0, 1, 2, 3]
 

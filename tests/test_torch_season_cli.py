@@ -14,7 +14,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 from optimalinterpolation_tpu import cli as jcli
 from optimalinterpolation_tpu.io import quicklook as JQ
@@ -23,8 +22,6 @@ from optimalinterpolation_tpu_torch.io import quicklook as TQ
 from optimalinterpolation_tpu_torch.io.pickles import load_pickle
 
 from .test_torch_multiday import assert_matches_jax
-
-torch.set_num_threads(2)
 
 RES = "500"
 

@@ -15,7 +15,6 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 
 from optimalinterpolation_tpu.io import quicklook as JQ
 from optimalinterpolation_tpu.pipeline import season as JS
@@ -26,8 +25,6 @@ from optimalinterpolation_tpu_torch.pipeline import season as TS
 from .test_multiday import wave_season  # noqa: F401  (module-scoped fixture)
 from .test_torch_multiday import assert_matches_jax, wave_cfg
 from .test_torch_season import pickles
-
-torch.set_num_threads(2)
 
 DAYS = [0, 1]
 

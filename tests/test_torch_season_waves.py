@@ -11,15 +11,11 @@ days beside it). Quicklook seasons are in ``test_torch_multiday_paths.py``.
 
 import os
 
-import torch
-
 from optimalinterpolation_tpu.pipeline import season as JS
 from optimalinterpolation_tpu_torch.pipeline import season as TS
 
 from .test_multiday import wave_season  # noqa: F401  (module-scoped fixture)
 from .test_torch_multiday import assert_matches_jax, assert_same_days, wave_cfg
-
-torch.set_num_threads(2)
 
 
 def run_unchained(mod, ds, outdir, days, day_parallel, precomputed_hypers=None):

@@ -9,10 +9,12 @@ configuration as it is (``flat``, here); with the spatial seeding and the
 warm-start cascade on (``seeded``: ``_permute_valid_points`` shuffles a
 bucket before its rows are split); chained from the seeded day's hypers
 (``chained``: ``init_hypers``, where the bucket's ``chained`` is decided);
-and the Adam fit (``adam``). The last three, and the CLI, are in
-``test_torch_sharded_paths.py``, the comparisons with the JAX package in
-``test_torch_sharded_jax.py``; both take their helpers from here. CPU
-shards run the kernels' plain twins, as every CPU test does.
+and the Adam fit (``adam``). The seeded and chained cases are in
+``test_torch_sharded_paths.py``, the Adam case in
+``test_torch_sharded_adam.py``, the comparisons with the JAX package in
+``test_torch_sharded_jax.py``; they take their helpers from here. The CLI
+is in ``test_torch_sharded_cli.py``. CPU shards run the kernels' plain
+twins, as every CPU test does.
 
 A sharded day, on 3 shards and on 16 (which leaves shards empty), gives the
 unsharded day's 15 fields within 1e-10 m (1e-10 relative for lZ and the
@@ -24,7 +26,6 @@ relative) and the same stage entries.
 """
 import numpy as np
 import pytest
-import torch
 
 from optimalinterpolation_tpu.models import optimizer as JO
 from optimalinterpolation_tpu.parallel import mesh as JMESH
@@ -35,8 +36,6 @@ from optimalinterpolation_tpu_torch.pipeline import daily as TD
 
 from .test_pipeline import small_season  # noqa: F401  (module-scoped fixture)
 from .test_torch_multiday import assert_matches_jax
-
-torch.set_num_threads(2)
 
 PACKAGES = {"jax": (JD, JO), "torch": (TD, TO)}
 # the cases, as DailyConfig and OptimizeConfig fields beside the JAX test's

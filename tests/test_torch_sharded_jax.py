@@ -13,12 +13,9 @@ same stage entries (names, N, cells and iteration sums).
 """
 
 import pytest
-import torch
 
 from .test_pipeline import small_season  # noqa: F401  (module-scoped fixture)
 from .test_torch_sharded import check_against_jax_sharded, runs  # noqa: F401
-
-torch.set_num_threads(2)
 
 
 @pytest.mark.parametrize("case", ["flat", "seeded"])

@@ -16,7 +16,6 @@ the same stage entries (names, N, cells, iteration sums).
 """
 
 import numpy as np
-import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from optimalinterpolation_tpu.parallel.mesh import day_cell_mesh as jax_day_cell_mesh
@@ -26,8 +25,6 @@ from optimalinterpolation_tpu_torch.pipeline import multiday as TM
 
 from .test_multiday import wave_season  # noqa: F401  (module-scoped fixture)
 from .test_torch_multiday import assert_matches_jax, stage_entries, wave_cfg
-
-torch.set_num_threads(2)
 
 DAYS = [0, 2]
 

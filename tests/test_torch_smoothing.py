@@ -13,8 +13,6 @@ import torch
 from optimalinterpolation_tpu.ops import smoothing as JS
 from optimalinterpolation_tpu_torch.ops import smoothing as TS
 
-torch.set_num_threads(2)
-
 
 def _field(seed, g=40):
     rng = np.random.default_rng(seed)

@@ -24,8 +24,6 @@ from optimalinterpolation_tpu_torch.models import svgp as TS
 
 from . import oracle
 
-torch.set_num_threads(2)
-
 LOG_H = np.log(np.array([1.8e5, 1.8e5, 3.0, 0.03, 0.004]))
 X0 = np.log(np.array([25e3, 25e3, 1.0, 1.0, 0.1]))  # reference init
 

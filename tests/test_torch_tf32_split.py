@@ -23,8 +23,6 @@ from optimalinterpolation_tpu_torch.ops import kernels as K
 from optimalinterpolation_tpu_torch.ops import linalg as L
 from optimalinterpolation_tpu_torch.ops.kernels import Kernel
 
-torch.set_num_threads(2)
-
 BLK = 128
 
 
