@@ -20,9 +20,12 @@ own arithmetic, on (B, 5) vectors, is plain torch on the device of its
 inputs, and the L-BFGS state stays there. JAX's ``lax.while_loop`` becomes a
 Python loop whose condition reads from the device which rows are still at
 work: one host synchronisation per L-BFGS iteration and one per line-search
-step, counted in ``_lbfgs_segment.host_syncs``. The objective is then
+round, counted in ``_lbfgs_segment.host_syncs``. The objective is then
 evaluated for those rows only, which leaves every cell's trajectory as it
-was.
+was. A round evaluates each searching row's next trial step, or, where the
+objective runs a launch of several rows at the cost of one (K3 on a card)
+and few rows still search, their next several halvings in one launch
+(:func:`_line_search`).
 """
 
 from __future__ import annotations
@@ -218,18 +221,39 @@ def _resolve_backend(config: OptimizeConfig, n: int) -> str:
     return "xla"
 
 
+def _launch_width(backend: str, device: torch.device) -> int:
+    """The rows a value launch of the ``backend`` objective on ``device``
+    runs at the cost of one. K3 on a card runs one CTA a row, and its 512
+    threads at 128 registers fill an SM's register file, so a launch of up
+    to one wave, the card's SM count, costs what one row costs (H100, N =
+    1024: 2.034 ms for 1 row, 2.291 ms for 132). Every other objective's
+    time grows with its rows (the blocked and Nystrom objectives, the plain
+    path, the CPU twins): 1."""
+    if backend == "fused" and device.type == "cuda":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return 1
+
+
 def _batched_fns(kind: K.Kernel, jitter: float, backend: str, x, y, mask):
     """(value_fn, vg_fn, pair) for one batch. ``value_fn`` and ``vg_fn``
     take ``(h, rows)``: ``h`` (R, 5) log-hypers for the rows ``rows`` (an
-    index tensor) of the batch, or for all of them where ``rows`` is None.
-    Rows are independent, so evaluating a subset gives those rows what the
-    whole batch would.
+    index tensor, which may repeat a row) of the batch, or for all of them
+    where ``rows`` is None. Rows are independent, so evaluating a subset
+    gives those rows what the whole batch would. ``value_fn.width`` is
+    :func:`_launch_width` of the backend on the batch's device.
 
     ``pair`` is ``(value_and_factors_fn, grad_from_factors_fn)`` on the
     blocked backend, else None: the line search carries each trial's
     factorization, and the gradient at the accepted point reuses it instead
     of factoring again (``optimizer.py:219-295``). K3 keeps its factor on
     chip and cannot export one."""
+    value_fn, vg_fn, pair = _objective_fns(kind, jitter, backend, x, y, mask)
+    value_fn.width = _launch_width(backend, x.device)
+    return value_fn, vg_fn, pair
+
+
+def _objective_fns(kind: K.Kernel, jitter: float, backend: str, x, y, mask):
+    """:func:`_batched_fns` without the width."""
     def data(rows):
         if rows is None:
             return x, y, mask
@@ -400,53 +424,114 @@ def _direction(grad, s_h, y_h, rho_h, n_st):
     return -r
 
 
-def _line_search(value_fn, params, value, grad, d, live, live_rows, t_carry, pair=None):
-    """Armijo backtracking of at most ``_LS_MAX_STEPS`` halvings, every cell
-    from its own first trial step: the 1-nat norm cap, warm-started from
-    twice the last accepted step. Returns (t, value at t, Armijo holds,
-    factors).
+def _armijo(t, v, value, gd):
+    return v <= value + _LS_C1 * t * gd
+
+
+def _still_searching(flags: torch.Tensor, spare: torch.Tensor) -> tuple:
+    """(the number of set ``flags``, the device scalar ``spare``, the
+    indices of the set flags in ascending order): the two numbers come to
+    the host together, one synchronisation, counted; the indices are sorted
+    out on the device without a read of their own."""
+    counters.bump(_lbfgs_segment, "host_syncs")
+    left, spare = torch.stack([flags.sum(), spare]).tolist()
+    if left == 0:
+        return 0, spare, None
+    order = torch.sort(flags.logical_not().to(torch.uint8), stable=True).indices
+    return left, spare, order[:left]
+
+
+def _line_search(value_fn, params, value, grad, d, live_rows, t_carry, pair=None):
+    """Armijo backtracking over the trial steps ``t0 2^-j``, j = 0 ..
+    ``_LS_MAX_STEPS``, every cell from its own first trial step t0: the
+    1-nat norm cap, warm-started from twice the last accepted step. A cell
+    takes its first trial that passes Armijo, else the last. Returns (t,
+    value at t, Armijo holds, factors).
 
     Only the rows still searching are evaluated (the JAX package's
     ``while_loop`` evaluates every row again at its unchanged point and
     discards the value): a cell's trajectory is the same, and a chunk no
     longer pays twelve evaluations of all its rows for one hard cell.
 
+    The search goes in rounds, one ``value_fn`` call and one host
+    synchronisation each. All R rows searching in a round are at the same
+    trial j; the round evaluates each one's trials j .. j + k - 1 in one
+    call, k = min(W // R, trials left) and at least 1, W being
+    ``value_fn.width`` (:func:`_launch_width`). Where W is 1, or more than
+    W / 2 rows search, a round is one halving of each row; once few rows
+    are left, one K3 launch carries several of their halvings for the cost
+    of one. Trial j is t0 halved j times whichever round evaluates it, and
+    a row's value does not depend on the rows that share its call, so t,
+    its value and the flag are those of a search one halving a round, bit
+    for bit.
+    ``_line_search.packed_launches`` counts the rounds of k > 1,
+    ``.trials`` the trial points evaluated and ``.spare_trials`` those
+    evaluated past the trial a row took.
+
     With the blocked backend's ``pair``, ``factors`` holds the factorization
     of each live row's current trial point, in the order of ``live_rows``:
-    each evaluation's factors are written into it at its rows' places, so
-    the gradient at the final t needs no factorization of its own."""
+    each round's factors of the trial a row took are written into it at its
+    row's place, so the gradient at the final t needs no factorization of
+    its own."""
     gd = (grad * d).sum(dim=1)
     dnorm = torch.linalg.vector_norm(d, dim=1)
     t = torch.minimum(torch.ones_like(dnorm), _MAX_STEP / dnorm.clamp_min(1e-30))
     t = torch.minimum(t, 2.0 * t_carry)
 
-    def armijo(t, v):
-        return v <= value + _LS_C1 * t * gd
-
-    def trial(t, rows):
-        p = _take(params + t[:, None] * d, rows)
-        return (value_fn(p, rows), None) if pair is None else pair[0](p, rows)
-
-    v_live, factors = trial(t, live_rows)
-    v = _put(value, live_rows, v_live)
-    tries = torch.zeros_like(live, dtype=torch.int32)
+    width = value_fn.width
+    rows = live_rows
+    n = params.shape[0] if rows is None else rows.numel()
+    # the searching rows' next trial step, point, direction, value and slope
+    tr, pr, dr, vr, gr = (_take(a, rows) for a in (t, params, d, value, gd))
+    t_out, v_out, factors = t, value, None
+    j = 0
     while True:
-        active = (tries < _LS_MAX_STEPS) & live & ~armijo(t, v)
-        rows = _rows_of(active)
-        if rows is not None and rows.numel() == 0:
-            break
-        t = torch.where(active, t * 0.5, t)
-        v_rows, f_rows = trial(t, rows)
-        v = _put(v, rows, v_rows)
+        k = max(1, min(width // n, _LS_MAX_STEPS + 1 - j))
+        steps = [tr]
+        for _ in range(k - 1):
+            steps.append(steps[-1] * 0.5)
+        tb = torch.stack(steps, dim=1)  # (n, k): trials j .. j + k - 1
+        p = (pr[:, None] + tb[:, :, None] * dr[:, None]).reshape(n * k, -1)
+        at = rows
+        if k > 1:
+            at = (torch.arange(n, device=p.device) if rows is None else rows).repeat_interleave(k)
+        vb, fb = (value_fn(p, at), None) if pair is None else pair[0](p, at)
+        vb = vb.reshape(n, k)
+        fails = (~_armijo(tb, vb, vr[:, None], gr[:, None])).long()
+        lead = fails.cumprod(dim=1).sum(dim=1)  # trials failed before the first pass
+        pick = lead.clamp_max(k - 1)[:, None]  # the first pass, else the last trial
+        t_out = _put(t_out, rows, tb.gather(1, pick)[:, 0])
+        v_out = _put(v_out, rows, vb.gather(1, pick)[:, 0])
         if pair is not None:
-            if rows is None:
-                factors = f_rows
+            if k > 1:
+                taken = torch.arange(n, device=p.device) * k + pick[:, 0]
+                fb = tuple(f.index_select(0, taken) for f in fb)
+            if factors is None:  # the first round: every live row
+                factors = fb
             else:  # the rows' places among the live rows
-                at = rows if live_rows is None else torch.searchsorted(live_rows, rows)
-                for carried, new in zip(factors, f_rows):
-                    carried.index_copy_(0, at, new)
-        tries = tries + active.to(torch.int32)
-    return t, v, armijo(t, v), factors
+                places = rows if live_rows is None else torch.searchsorted(live_rows, rows)
+                for carried, new in zip(factors, fb):
+                    carried.index_copy_(0, places, new)
+        j += k
+        counters.bump(_line_search, "trials", n * k)
+        if k > 1:
+            counters.bump(_line_search, "packed_launches")
+        more = lead == k if j <= _LS_MAX_STEPS else torch.zeros_like(lead, dtype=torch.bool)
+        left, spare, sel = _still_searching(more, (k - 1 - lead).clamp_min(0).sum())
+        counters.bump(_line_search, "spare_trials", spare)
+        if left == 0:
+            break
+        tr = tb[:, -1] * 0.5
+        if rows is not None or left < n:
+            rows = sel if rows is None else rows.index_select(0, sel)
+            tr, pr, dr, vr, gr = (a.index_select(0, sel) for a in (tr, pr, dr, vr, gr))
+        n = left
+    return t_out, v_out, _armijo(t_out, v_out, value, gd), factors
+
+
+_line_search.packed_launches = 0
+_line_search.trials = 0
+_line_search.spare_trials = 0
 
 
 @torch.no_grad()
@@ -469,8 +554,8 @@ def _lbfgs_segment(value_fn, vg_fn, state: LbfgsState, knobs: _Knobs,
         descent = ((grad * d).sum(dim=1) < 0.0)[:, None]
         d = torch.where(descent, d, -grad)
 
-        t, new_v, ls_ok, factors = _line_search(value_fn, params, value, grad, d, live,
-                                                live_rows, st.t_carry, pair)
+        t, new_v, ls_ok, factors = _line_search(value_fn, params, value, grad, d, live_rows,
+                                                st.t_carry, pair)
         new_p = params + t[:, None] * d
         if pair is None:
             _, g_live = vg_fn(_take(new_p, live_rows), live_rows)

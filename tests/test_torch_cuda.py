@@ -262,6 +262,56 @@ def test_rows_do_not_depend_on_the_launch(card, n):
     torch.testing.assert_close(nll[:1].double(), ref_v, rtol=1e-5, atol=0)
 
 
+def _day_like_rows(rng, b, n, card):
+    """``b`` cells of a bucket of N = ``n``: 60-100% of the slots valid, the
+    rest padding; Matern-3/2 draws (ell 180 / 120 km, 3 days, sf2 0.03, sn2
+    0.003) over 300 km and +-3.6 days; the reference x0 as the start."""
+    x = rng.uniform(-3e5, 3e5, (b, n, 3)) * np.asarray([1, 1, 1.2e-5])
+    valid = rng.integers(int(0.6 * n), n + 1, b)
+    mask = (np.arange(n)[None] < valid[:, None]).astype(np.float64)
+    xs = torch.tensor(x / np.asarray([1.8e5, 1.2e5, 3.0]), device=card)
+    r = (xs[:, :, None] - xs[:, None]).square().sum(-1).sqrt() * np.sqrt(3.0)
+    k = 0.03 * (1.0 + r) * torch.exp(-r) + 0.003 * torch.eye(n, device=card, dtype=r.dtype)
+    z = torch.tensor(rng.standard_normal((b, n, 1)), device=card)
+    y = (torch.linalg.cholesky(k) @ z)[:, :, 0].cpu().numpy() * mask
+    h = np.tile(np.log([25e3, 25e3, 1.0, 1.0, 0.1]), (b, 1))
+    return [torch.tensor(a, dtype=torch.float32, device=card) for a in (h, x, y, mask)]
+
+
+@pytest.mark.parametrize("n", [512, 1024])
+def test_packed_line_search_on_card_is_bit_equal(card, n, monkeypatch):
+    """A K3 chunk of 40 day-like cells fitted at launch width 1 (one halving
+    a round) and at the card's (its SM count): params, values, iterations
+    and convergence bit for bit, with fewer value launches and as many
+    gradient launches (a row's bits do not depend on its launch:
+    ``test_rows_do_not_depend_on_the_launch``)."""
+    from optimalinterpolation_tpu_torch.models import optimizer
+
+    args = _day_like_rows(np.random.default_rng(40 + n), 40, n, card)
+    cfg = optimizer.OptimizeConfig(max_iters=60, ftol_abs=1e-3, jitter=1e-6)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert optimizer._launch_width("fused", card) == sms
+    assert optimizer._launch_width("blocked", card) == 1
+
+    def fit():
+        before = (fused_gp.gp_nll.launches, fused_gp.gp_nll_and_grad.launches,
+                  optimizer._line_search.packed_launches)
+        res = optimizer.optimize_mll_batch(*args, cfg)
+        after = (fused_gp.gp_nll.launches, fused_gp.gp_nll_and_grad.launches,
+                 optimizer._line_search.packed_launches)
+        return res, [a - b for a, b in zip(after, before)]
+
+    packed, (values, grads, packs) = fit()
+    with monkeypatch.context() as mp:
+        mp.setattr(optimizer, "_launch_width", lambda backend, device: 1)
+        one, (values1, grads1, packs1) = fit()
+    for got, want in zip(packed, one):
+        assert torch.equal(got, want)
+    assert int(one.iters.min()) > 3 and bool(one.converged.any())
+    assert packs1 == 0 and packs > 0
+    assert values < values1 and grads == grads1, (values, values1, grads, grads1)
+
+
 def test_k3_ill_conditioned_matern_cell(card):
     """sn2 at 1e-9 sf2, so the diagonal is sf2 (1 + jitter): the condition
     number reaches ~1e6. Value and gradient within the larger of the usual
