@@ -2,11 +2,13 @@
 the judge and the metric readers need afterwards.
 
 The program is driven through ``pipeline.multiday.interpolate_days``, one
-day a call, and each day's pickle and quicklook NetCDF are written as
-``pipeline.season.run_season`` writes them. The benchmark wraps, from its
-own side, the program's gather (``multiday.gather_neighborhoods``: a host
-span, and copies of the rows the judge samples), the host steps of a day
-(spans only) and, in a traced run, the kernels' launch entry
+wave of windows a call (one window, or ``day_parallel`` of them strided as
+``pipeline.season.run_season`` strides a season), and each day's pickle and
+quicklook NetCDF are written as ``run_season`` writes them. The benchmark
+wraps, from its own side, the program's gather
+(``multiday.gather_neighborhoods``: a host span, and copies of the rows the
+judge samples), the host steps of a wave (spans only) and, in a traced run,
+the kernels' launch entry
 (``ops._cuda.launch``: each launch's shapes, read from the arguments'
 metadata, with no device read).
 """
@@ -38,7 +40,9 @@ HOST_STEPS = {
 
 @dataclasses.dataclass
 class Day:
-    """One day the window ran."""
+    """One day the window ran. A wave's wall, stage entries, host syncs and
+    host spans are its first day's; its other days carry none, so a total
+    over the days divided by their number is the wave's cost a day."""
 
     w: int
     cells: int
@@ -48,6 +52,7 @@ class Day:
     result: object  # the program's DailyResult
     rows: list  # captured bucket rows for the judge
     spans: dict  # host step -> seconds
+    wave: tuple  # the windows of the call that ran the day, in wave order
 
 
 class Run:
@@ -128,19 +133,31 @@ class Run:
 
     def _gather(self, fn):
         """The program's gather, with a span, and copies of the sampled rows
-        of the day's own buckets (not the seed sublattice's)."""
+        of the wave's own buckets (not the seed sublattice's). A call is
+        matched to the first window of the wave not yet seen whose active
+        cells it gathers (the program gathers the wave's days in wave order).
+        Each row keeps its window and its place in the combined bucket of
+        its capacity (``pos``), where the real rows of the wave's earlier
+        days come first, as ``multiday._concat_buckets`` stacks them."""
         def gather(train, cells_xy, *args, **kw):
             t0 = time.time_ns()
             out = fn(train, cells_xy, *args, **kw)
             cap = self._capture
-            if cap is not None and np.array_equal(cells_xy, cap["cells_xy"]):
+            win = None if cap is None else next(
+                (c for c in cap["windows"]
+                 if not c["seen"] and np.array_equal(cells_xy, c["cells_xy"])), None)
+            if win is not None:
+                win["seen"] = True
                 for b in out:
+                    before = cap["filled"][b.capacity]
                     k = min(J.CHECK_CELLS_PER_BUCKET, b.n_valid_cells)
                     for r in np.sort(self.rng_sample.choice(b.n_valid_cells, k, replace=False)):
-                        cap["rows"].append({
-                            "row": int(r), "cell_index": int(b.cell_index[r]),
+                        win["rows"].append({
+                            "row": int(r), "pos": before + int(r), "w": win["w"],
+                            "cell_index": int(b.cell_index[r]),
                             "x": b.x[r].copy(), "z": b.z[r].copy(), "mask": b.mask[r].copy(),
                             "xstar": b.xstar[r].copy()})
+                    cap["filled"][b.capacity] += b.n_valid_cells
             self.spans.append(("gather", t0, time.time_ns()))
             return out
         return gather
@@ -170,51 +187,73 @@ class Run:
     def n_windows(self) -> int:
         return self.cfg["n_days"] - self.cfg["window_days"] + 1
 
-    def day(self, w: int, **kwargs) -> Day:
-        """Window ``w`` through ``interpolate_days`` (``kwargs``: the driver's
-        ``init_hypers`` or ``precomputed_hypers``), then its outputs written."""
+    def windows(self, j: int) -> list:
+        """The windows of wave ``j`` of the season, as ``run_season``
+        strides a season at the traffic's ``day_parallel`` (1 where it names
+        none): windows ``j, j + n_waves, ...``, ``n_waves`` the windows over
+        ``day_parallel``, rounded up. Empty past the last wave."""
+        p = int(self.cell.traffic.get("day_parallel", 1))
+        n = self.n_windows()
+        n_waves = max(1, -(-n // p))
+        return list(range(j, n, n_waves)) if 0 <= j < n_waves else []
+
+    def wave(self, ws, **kwargs) -> list:
+        """Windows ``ws`` as one wave, one call of ``interpolate_days``
+        (``kwargs``: the driver's ``init_hypers``, a field set a window, or
+        ``precomputed_hypers``), then each day's outputs written. Returns
+        one Day a window; the wave's wall, stage entries, host syncs and
+        host spans are counted once, on its first Day."""
         from optimalinterpolation_tpu_torch.io.pickles import save_pickle
         from optimalinterpolation_tpu_torch.io.quicklook import write_result_quicklook
         from optimalinterpolation_tpu_torch.models import optimizer
         from optimalinterpolation_tpu_torch.pipeline.multiday import interpolate_days
 
-        sie_day = self.ds.sie[:, :, w + self.daily_cfg.t_mid]
-        active = np.nonzero(np.isfinite(sie_day))
-        self._capture = {"cells_xy": np.stack([self.ds.x[active], self.ds.y[active]], axis=1),
-                         "rows": []}
+        ws = [int(w) for w in ws]
+        windows = []
+        for w in ws:
+            active = np.nonzero(np.isfinite(self.ds.sie[:, :, w + self.daily_cfg.t_mid]))
+            windows.append({"w": w, "cells": int(active[0].size), "seen": False, "rows": [],
+                            "cells_xy": np.stack([self.ds.x[active], self.ds.y[active]],
+                                                 axis=1)})
+        self._capture = {"windows": windows, "filled": defaultdict(int)}
         stats: list = []
         syncs0 = optimizer._lbfgs_segment.host_syncs
         n_spans = len(self.spans)
         t0 = time.perf_counter()
-        (res,) = interpolate_days(self.ds, [w], [self.cfg["prior_mean"]], self.daily_cfg,
-                                  stats=stats, device=self.device, **kwargs)
+        results = interpolate_days(self.ds, ws, [self.cfg["prior_mean"]] * len(ws),
+                                   self.daily_cfg, stats=stats, device=self.device, **kwargs)
         tw = time.time_ns()
-        save_pickle(res.to_reference_dict(),
-                    os.path.join(self.outdir, f"CS2S3_{res.date}_{self.ds.grid_res_km}km.pkl"))
-        write_result_quicklook(res, *self.lonlat, self.ds.grid_res_km, self.outdir)
+        for res in results:
+            save_pickle(res.to_reference_dict(),
+                        os.path.join(self.outdir, f"CS2S3_{res.date}_{self.ds.grid_res_km}km.pkl"))
+            write_result_quicklook(res, *self.lonlat, self.ds.grid_res_km, self.outdir)
         self.spans.append(("write", tw, time.time_ns()))
         wall = time.perf_counter() - t0
         spans = defaultdict(float)
         for step, a, b in self.spans[n_spans:]:
             spans[step] += (b - a) / 1e9
-        rows, self._capture = self._capture["rows"], None
-        return Day(w=w, cells=int(active[0].size), wall_s=wall, stats=stats,
-                   host_syncs=optimizer._lbfgs_segment.host_syncs - syncs0, result=res,
-                   rows=rows, spans=dict(spans))
+        self._capture = None
+        syncs = optimizer._lbfgs_segment.host_syncs - syncs0
+        return [Day(w=win["w"], cells=win["cells"], wall_s=wall if i == 0 else 0.0,
+                    stats=stats if i == 0 else [], host_syncs=syncs if i == 0 else 0,
+                    result=res, rows=win["rows"], spans=dict(spans) if i == 0 else {},
+                    wave=tuple(ws))
+                for i, (win, res) in enumerate(zip(windows, results))]
 
     def window(self, driver, first: int, seconds: float) -> None:
-        """Whole days back to back from window ``first``: a day starts only
-        if the previous day's wall fits in what is left of ``seconds``. The
-        window ends when its last day ends."""
+        """Whole waves back to back from wave ``first``: a wave starts only
+        if the previous wave's wall fits in what is left of ``seconds``. The
+        window ends when its last wave ends."""
         self.t_window_ns = time.time_ns()
         t0 = time.perf_counter()
-        w = first
-        while True:
-            d = driver.day(self, w)
-            self.days.append(d)
+        j, ws = first, self.windows(first)
+        while ws:
+            days = driver.wave(self, ws)
+            self.days.extend(days)
             elapsed = time.perf_counter() - t0
-            w += 1
-            if elapsed + d.wall_s > seconds or w >= self.n_windows():
+            j += 1
+            ws = self.windows(j)
+            if elapsed + days[0].wall_s > seconds:
                 break
         self.window_s = time.perf_counter() - t0
         self.t_window_end_ns = time.time_ns()
@@ -246,5 +285,5 @@ class Run:
             for n in J.HYPER_NAMES:
                 fields[n] = r.hypers[n]
                 fields[n + "_smth"] = r.hypers_smth[n]
-            out.append({"w": d.w, "fields": fields, "rows": d.rows})
+            out.append({"w": d.w, "wave": d.wave, "fields": fields, "rows": d.rows})
         return out

@@ -1,16 +1,18 @@
-"""Chained fit days: each day starts from the previous day's fitted hyper
-fields (``interpolate_days``'s ``init_hypers``), as ``season`` chains them at
-wave width 1. The chain starts in set-up from the seeded hyper fields, on
-the day before the window's first."""
+"""Chained fit days, as ``season`` chains them: each day starts from the
+fitted hyper fields of the window before it (``interpolate_days``'s
+``init_hypers``), which ran one wave earlier (the day before's call at one
+window a wave). The set-up's first wave starts every chain from the seeded
+hyper fields."""
 
 FITS = True
 
 
 def start(run) -> None:
-    run.state["chain"] = run.hyper_fields
+    run.state["chain"] = {}
 
 
-def day(run, w):
-    d = run.day(w, init_hypers=[run.state["chain"]])
-    run.state["chain"] = d.result.hypers
-    return d
+def wave(run, ws):
+    chain = run.state["chain"]
+    days = run.wave(ws, init_hypers=[chain[w - 1] if chain else run.hyper_fields for w in ws])
+    run.state["chain"] = {d.w: d.result.hypers for d in days}
+    return days

@@ -9,5 +9,5 @@ def start(run) -> None:
     pass
 
 
-def day(run, w):
-    return run.day(w)
+def wave(run, ws):
+    return run.wave(ws)

@@ -1,6 +1,6 @@
 """Quicklook days: one predict a day at the seasonal hyper fields
 (``interpolate_days``'s ``precomputed_hypers``); nothing is fitted or
-smoothed."""
+smoothed. A wave of several windows is one combined predict."""
 
 FITS = False
 
@@ -9,5 +9,5 @@ def start(run) -> None:
     pass
 
 
-def day(run, w):
-    return run.day(w, precomputed_hypers=run.hyper_fields)
+def wave(run, ws):
+    return run.wave(ws, precomputed_hypers=run.hyper_fields)

@@ -7,9 +7,9 @@ alone), and its smoothing, which the program runs in float64, in float32.
 
 It needs no run of the program: it makes the cell's season, and draws its
 share and hyper fields from the seed, as a run does, samples cells of every bucket of
-the window's first days, and returns the numbers the judge would compare
-(``predict_err_m``; for fit cells also ``fit_gap_gm_nats`` and
-``smooth_rel_err``).
+the windows it is given (a run's first days or first wave), and returns the
+numbers the judge would compare (``predict_err_m``; for fit cells also
+``fit_gap_gm_nats`` and ``smooth_rel_err``).
 """
 
 from __future__ import annotations
@@ -54,8 +54,8 @@ def _sample(day: DayInputs, buckets, per_bucket: int, rng) -> list:
     return out
 
 
-def control_numbers(cfg: dict, fits: bool, seed: int, n_days: int = 2, device="cuda") -> dict:
-    """The control's numbers on ``n_days`` window days of ``cfg``'s cell."""
+def control_numbers(cfg: dict, fits: bool, seed: int, windows, device="cuda") -> dict:
+    """The control's numbers on the days of ``windows`` of ``cfg``'s cell."""
     on_card = str(device).startswith("cuda")
     low = torch.float32
     rng_share, rng_fields, rng_sample = F.streams(seed, 3)
@@ -70,9 +70,8 @@ def control_numbers(cfg: dict, fits: bool, seed: int, n_days: int = 2, device="c
     prior, jitter = float(cfg["prior_mean"]), float(cfg["jitter"])
     tf32 = torch.backends.cuda.matmul.allow_tf32
     pred_err, smooth_err, gaps = 0.0, 0.0, []
-    first = cfg.get("first_window", 7)
     try:
-        for w in range(first, first + n_days):
+        for w in windows:
             day = DayInputs(season, share, cfg, w)
             rows = _sample(day, buckets, J.CHECK_CELLS_PER_BUCKET, rng_sample)
             probs = [p for _, p, _ in rows]

@@ -18,7 +18,8 @@ program read or derived), it recomputes:
   stopping rule's ``ftol`` (gaps below it are inside the rule), on the
   problem the fit saw (the whole neighbourhood, or above ``opt_n_max``
   points the seeded subsample the program's rule draws: one
-  ``default_rng(0)`` permutation per bucket row in row order). A fault on
+  ``default_rng(0)`` permutation per row of the wave's combined bucket, in
+  row order, the wave's earlier days' rows first). A fault on
   any share of the rows moves it, each row by its own factor, where a
   median would see only a fault on more than half of them;
 * ``smooth_rel_err`` (fit cells): the largest relative gap between the
@@ -77,6 +78,16 @@ class DayInputs:
         self.shape = season.x.shape
         self.t_mid = t_mid
         self.x, self.y = season.x, season.y
+        self._in_bucket = {}
+
+    def in_bucket(self, n: int, buckets) -> np.ndarray:
+        """Active-cell indices of the cells whose neighbourhood goes to the
+        bucket of ``n`` points, in active-cell order."""
+        if n not in self._in_bucket:
+            counts = self.counts[self.active_ij]
+            self._in_bucket[n] = np.nonzero(
+                np.array([G.bucket_of(int(c), buckets) == n for c in counts], bool))[0]
+        return self._in_bucket[n]
 
     def points(self, cell_index: int):
         """(cell (i, j), indices of its neighbourhood)."""
@@ -115,27 +126,29 @@ def check_row(day: DayInputs, row: dict, buckets) -> tuple:
     return ok, prog.astype(np.float64)
 
 
-def fit_subsample(day: DayInputs, row: dict, pts: np.ndarray, buckets, n_max: int):
+def fit_subsample(day: DayInputs, row: dict, pts: np.ndarray, buckets, n_max: int,
+                  earlier=()):
     """The points the fit of ``row`` saw: all of them up to ``n_max``, else
-    the first ``n_max`` after the program's rule shuffled the row (one
-    ``default_rng(0)`` over the bucket, one permutation per row of more
-    than one point, rows in active-cell order)."""
+    the first ``n_max`` after the program's rule shuffled the row: one
+    ``default_rng(0)`` over the combined bucket of the row's wave, one
+    permutation per row of more than one point, in row order. The rows of
+    the wave's days before ``day`` (``earlier``, their ``DayInputs`` in wave
+    order) come first, each day's in active-cell order; ``row["pos"]``
+    (else ``row["row"]``) is the row's place there."""
     if len(pts) <= n_max:
         return pts
     n = row["x"].shape[0]
-    counts = day.counts[day.active_ij]
-    in_bucket = np.array([G.bucket_of(int(c), buckets) == n for c in counts])
-    cells = np.nonzero(in_bucket)[0]
-    if row["row"] >= len(cells) or cells[row["row"]] != row["cell_index"]:
+    ks = [d.counts[d.active_ij][d.in_bucket(n, buckets)] for d in earlier]
+    cells = day.in_bucket(n, buckets)
+    r = row.get("pos", row["row"]) - sum(len(k) for k in ks)
+    if not 0 <= r < len(cells) or cells[r] != row["cell_index"]:
         return None  # the row is not where the program's rule puts it
+    ks.append(day.counts[day.active_ij][cells[: r + 1]])
     rng = np.random.default_rng(0)
     perm = None
-    for r, c in enumerate(cells[: row["row"] + 1]):
-        k = min(int(counts[c]), n)
+    for k in np.minimum(np.concatenate(ks), n):
         if k > 1:
-            p = rng.permutation(k)
-            if r == row["row"]:
-                perm = p
+            perm = rng.permutation(int(k))
     return pts[perm][:n_max]
 
 
@@ -200,8 +213,11 @@ def judge(season, share, cfg: dict, fits: bool, days: list, quicklook_hypers=Non
     """The run's compared numbers. ``days``: one dict a window day, with
     ``w``, ``fields`` (name -> (G, G): ``interp``, ``interp_error``,
     ``interp_smth``, ``interp_error_smth``, the five hypers and their
-    ``_smth``) and ``rows`` (captured bucket rows: ``row``, ``cell_index``,
-    ``x``, ``z``, ``mask``, ``xstar``). ``gaps_out``, a list, receives
+    ``_smth``), ``rows`` (captured bucket rows: ``row``, ``cell_index``,
+    ``x``, ``z``, ``mask``, ``xstar``, and ``pos``, the row's place in its
+    wave's combined bucket) and ``wave`` (the windows of the call that ran
+    the day, in wave order; the day alone where absent), days of one wave
+    next to each other. ``gaps_out``, a list, receives
     each sampled fit's gap in nats."""
     buckets = tuple(cfg["buckets"])
     prior, jitter = float(cfg["prior_mean"]), float(cfg["jitter"])
@@ -211,8 +227,15 @@ def judge(season, share, cfg: dict, fits: bool, days: list, quicklook_hypers=Non
     missing = bad_rows = 0
     pred_err = smooth_err = 0.0
     gaps = []
+    inputs = {}  # window -> DayInputs, of the current wave's windows
     for d in days:
-        day = DayInputs(season, share, cfg, d["w"])
+        wave = tuple(d.get("wave", (d["w"],)))
+        inputs = {w: v for w, v in inputs.items() if w in wave}
+        for w in wave[: wave.index(d["w"]) + 1]:
+            if w not in inputs:
+                inputs[w] = DayInputs(season, share, cfg, w)
+        day = inputs[d["w"]]
+        earlier = [inputs[w] for w in wave[: wave.index(d["w"])]]
         f = d["fields"]
         finite = np.ones(int(day.ice.sum()), bool)
         for name in out_fields:
@@ -252,7 +275,7 @@ def judge(season, share, cfg: dict, fits: bool, days: list, quicklook_hypers=Non
         if fits:
             subs, lhs = [], []
             for row, pts, c in zip(rows, problems, cells):
-                sub = fit_subsample(day, row, pts, buckets, int(cfg["opt_n_max"]))
+                sub = fit_subsample(day, row, pts, buckets, int(cfg["opt_n_max"]), earlier)
                 if sub is None:
                     bad_rows += 1
                     continue

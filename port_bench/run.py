@@ -8,11 +8,12 @@ with an NVIDIA card::
 
 It writes the configuration's synthetic season into ``$TMPDIR``, reads it
 with the port's reader, draws from ``--seed`` the cell's share of cells, its
-hyper fields and the judge's sample, warms one day, then runs whole days
-back to back for ``--seconds`` through
-``pipeline.multiday.interpolate_days``, each day's pickle and quicklook
-NetCDF written as the ``season`` command writes them. After the window it
-judges the outputs against the plain float64 reference
+hyper fields and the judge's sample, warms one wave, then runs whole waves
+back to back for ``--seconds``, a wave a call of
+``pipeline.multiday.interpolate_days`` (one window, or ``day_parallel`` of
+them strided as ``season --day-parallel`` strides them), each day's pickle
+and quicklook NetCDF written as the ``season`` command writes them. After
+the window it judges the outputs against the plain float64 reference
 (``port_bench/reference/``), prints each compared number beside its limit as
 the last lines of standard error, and prints one JSON line as the last line
 of standard output: ``correct``, ``attempted`` and ``failed`` (active cells,
@@ -31,9 +32,12 @@ Layout of ``port_bench/`` (everything is found by the names in
 - ``configs/<config>.json``: a configuration as run (the deployment, its
   source, the cuts in ``reduced``, what was ``assumed``).
 - ``traffic/<traffic>.json``: a traffic mix: the driver and its parameters
-  (first window, warm days).
+  (``first_window``: the window's first wave; ``warm_days``: the set-up's
+  waves before it, each of ``day_parallel`` days; ``day_parallel``, 1 where
+  absent: the windows of a wave).
 - ``workloads/<workload>.json``: a cell's limits of the compared numbers.
-- ``drivers/<driver>.py``: ``FITS``, ``start(run)`` and ``day(run, w)``.
+- ``drivers/<driver>.py``: ``FITS``, ``start(run)`` and ``wave(run, ws)``,
+  which runs windows ``ws`` through ``run.wave`` and returns their days.
 - ``metrics/<metric>.py``: ``read(run)`` returns the metric or None.
 - ``kernels/<kernel>.py``: a kernel's launch entry, trace name, fixed
   peaks and ``work(args) -> (operations, bytes)`` from a launch's shapes.
@@ -45,7 +49,12 @@ Layout of ``port_bench/`` (everything is found by the names in
 To add a cell, add its entry to ``BENCHMARK.json`` and the files it names:
 a configuration, a traffic mix (a new driver only for a new kind of day), a
 ``workloads/<name>.json`` with its limits, and a ``metrics/<name>.py`` for
-each new metric. No file already here needs an edit.
+each new metric. No file already here needs an edit. Every driver takes a
+wave of any ``day_parallel``. A wave of several days is one call: its wall,
+stage entries, host syncs and host spans are counted once, on its first
+day, and every day counts its own cells, so a reader that divides a total
+by the window's days reads the wave's cost a day, and a rate is all the
+days' cells over the window's seconds.
 
 Build caches stay inside the checkout: the port builds its kernels into
 ``optimalinterpolation_tpu_torch/csrc/_build/`` and its host library into
@@ -110,8 +119,8 @@ def measure(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
         driver = cell.driver()
         driver.start(run)
         first = int(cell.traffic["first_window"])
-        for w in range(first - int(cell.traffic["warm_days"]), first):
-            driver.day(run, w)
+        for j in range(first - int(cell.traffic["warm_days"]), first):
+            driver.wave(run, run.windows(j))
         if on_card:
             torch.cuda.synchronize()
         run.setup_s = time.perf_counter() - t_start

@@ -14,14 +14,19 @@ import portbench_tiny as T
 import pytest
 import torch
 
-from port_bench.core import spec
+from port_bench.core import session, spec
 from port_bench.reference.control import control_numbers
 
-CELLS = ["fit_chained", "quicklook_season", "fit_cold"]
+CELLS = ["fit_chained", "quicklook_season", "fit_cold", "fit_chained_wave2"]
 
 
-def _config(cell):
-    return {**cell.config, "first_window": cell.traffic["first_window"]}
+def _windows(cell, n_days):
+    """The windows a run of ``cell`` starts with: its first wave, or, at one
+    window a wave, its first ``n_days`` days."""
+    first = int(cell.traffic["first_window"])
+    if int(cell.traffic.get("day_parallel", 1)) == 1:
+        return range(first, first + n_days)
+    return session.Run(cell, 0, "", "cpu").windows(first)
 
 
 @pytest.mark.cuda
@@ -31,14 +36,16 @@ def test_control_fails_at_the_cells_size(name, seed):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: TF32 exists only there")
     cell = spec.cell(name)
-    got = control_numbers(_config(cell), cell.driver().FITS, seed, device="cuda")
+    got = control_numbers(cell.config, cell.driver().FITS, seed, _windows(cell, 2),
+                          device="cuda")
     print(json.dumps({"control": name, "seed": seed, **got}))
     assert any(v > cell.limits[k] for k, v in got.items()), got
 
 
-@pytest.mark.parametrize("name", ["fit_chained", "quicklook_season"])
+@pytest.mark.parametrize("name", ["fit_chained", "quicklook_season", "fit_chained_wave2"])
 def test_control_gives_its_numbers_on_the_cpu(name):
     cell = T.tiny(spec.cell(name))
-    got = control_numbers(_config(cell), cell.driver().FITS, 11, n_days=1, device="cpu")
+    got = control_numbers(cell.config, cell.driver().FITS, 11, _windows(cell, 1),
+                          device="cpu")
     assert set(got) <= set(cell.limits)
     assert all(math.isfinite(v) and v >= 0 for v in got.values()), got

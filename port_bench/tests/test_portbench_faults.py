@@ -7,7 +7,9 @@ leaves the second half of the rows of each of its calls at their start
 (fit cells: half of the batch left out); half of each bucket's rows left
 without an answer; every predicted mean moved by 1 mm where it is produced;
 a day that hands back the day before's fields (the season's state
-unchanged). The exchange between cards does not exist on a one-card
+unchanged). A wave of several days has two more: the fit leaves the rows of
+the wave's later days at their start, and a later day hands back its wave
+partner's fields. The exchange between cards does not exist on a one-card
 cell."""
 
 import contextlib
@@ -68,29 +70,68 @@ def _stale(orig):
     return days
 
 
+def _later_days_unfitted():
+    """Patches that leave the fit's rows of a wave's later days at their
+    start: the wave's offsets (``multiday._offsets``) say where its first
+    day's cells end in the combined buckets' ``cell_index``."""
+    first_day = {"cells": 0}
+
+    def offsets(orig):
+        def wrapped(ctxs):
+            out = orig(ctxs)
+            first_day["cells"] = int(out[1])
+            return out
+        return wrapped
+
+    def fit_rows(orig):
+        def fit(b, h0, *args, **kw):
+            lh = np.array(orig(b, h0, *args, **kw))
+            later = b.cell_index >= first_day["cells"]
+            lh[later] = h0[later]
+            return lh
+        return fit
+
+    return [("pipeline.multiday", "_offsets", offsets),
+            ("pipeline.multiday", "_fit_rows", fit_rows)]
+
+
+def _partner(orig):
+    def days(*args, **kw):
+        res = orig(*args, **kw)
+        return res[:1] + [dataclasses.replace(res[0], date=r.date) for r in res[1:]]
+    return days
+
+
 FAULTS = {
     "fit_unchanged": ("pipeline.daily", "optimize_mll_chunked", _unchanged),
     "fit_half": ("pipeline.daily", "optimize_mll_chunked", _fit_half),
     "half_the_rows": ("pipeline.multiday", "_predict_bucket", _half),
     "answer_altered": ("pipeline.daily", "predict_batch", _altered),
     "day_unchanged": ("pipeline.multiday", "interpolate_days", _stale),
+    "later_days_unfitted": _later_days_unfitted(),
+    "partner_fields": ("pipeline.multiday", "interpolate_days", _partner),
 }
-CASES = [(cell, fault) for cell in ("fit_chained", "fit_cold") for fault in FAULTS] + [
-    ("quicklook_season", f) for f in ("half_the_rows", "answer_altered", "day_unchanged")]
+ONE_DAY = ("fit_unchanged", "fit_half", "half_the_rows", "answer_altered", "day_unchanged")
+CASES = [(cell, fault) for cell in ("fit_chained", "fit_cold") for fault in ONE_DAY] + [
+    ("quicklook_season", f) for f in ("half_the_rows", "answer_altered", "day_unchanged")] + [
+    ("fit_chained_wave2", f) for f in ("fit_half", "later_days_unfitted", "partner_fields")]
 
 
 @contextlib.contextmanager
 def _broken(fault):
     import importlib
 
-    mod_name, attr, make = FAULTS[fault]
-    mod = importlib.import_module(f"optimalinterpolation_tpu_torch.{mod_name}")
-    orig = getattr(mod, attr)
-    setattr(mod, attr, make(orig))
+    patches = FAULTS[fault] if isinstance(FAULTS[fault], list) else [FAULTS[fault]]
+    undo = []
     try:
+        for mod_name, attr, make in patches:
+            mod = importlib.import_module(f"optimalinterpolation_tpu_torch.{mod_name}")
+            undo.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, make(getattr(mod, attr)))
         yield
     finally:
-        setattr(mod, attr, orig)
+        for mod, attr, orig in reversed(undo):
+            setattr(mod, attr, orig)
 
 
 @pytest.mark.parametrize("cell,fault", CASES)
@@ -100,7 +141,8 @@ def test_a_fault_is_not_correct(cell, fault):
     assert not out["correct"], out["numbers"]
 
 
-@pytest.mark.parametrize("cell", ["fit_chained", "quicklook_season", "fit_cold"])
+@pytest.mark.parametrize("cell", ["fit_chained", "quicklook_season", "fit_cold",
+                                  "fit_chained_wave2"])
 def test_a_sound_run_is_correct(cell):
     out = T.measure(spec.cell(cell), seed=97531, seconds=3.0)
     assert out["correct"], out["numbers"]
@@ -110,11 +152,12 @@ def test_a_sound_run_is_correct(cell):
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", [515151, 2**31 + 99, 8_888_888_881])
 @pytest.mark.parametrize("fault", ["fit_half", "fit_unchanged"])
-@pytest.mark.parametrize("name", ["fit_chained", "fit_cold"])
+@pytest.mark.parametrize("name", ["fit_chained", "fit_cold", "fit_chained_wave2"])
 def test_fit_fault_on_the_card(name, fault, seed, monkeypatch):
-    """A fit fault planted from the window's first day (the set-up's days are
-    sound, so a chained day starts from yesterday's optimum), read at the
-    cell's own size on one window day; prints the numbers and the gaps."""
+    """A fit fault planted from the window's first wave (the set-up's waves
+    are sound, so a chained day starts from yesterday's optimum), read at
+    the cell's own size on one window wave; prints the numbers and the
+    gaps."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import json

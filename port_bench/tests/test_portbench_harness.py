@@ -14,7 +14,7 @@ import pytest
 from port_bench.core import spec
 
 ROOT = T.ROOT
-CELLS = ["fit_chained", "quicklook_season", "fit_cold"]
+CELLS = ["fit_chained", "quicklook_season", "fit_cold", "fit_chained_wave2"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optimalinterpolation_tpu")
 
 
